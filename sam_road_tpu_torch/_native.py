@@ -1,0 +1,56 @@
+"""Build-and-load for the port's shared libraries.
+
+Host C++ (the repository's native/nms.cc and native/pairs.cc, shared with
+the JAX package) is compiled with g++, and the CUDA kernels (csrc/) with
+nvcc (ops/_build.py). Each library is built at first use into BUILD_DIR,
+which .gitignore lists, under a file name keyed by a hash of its sources and
+flags, so an edited source or flag is rebuilt and never mixed up with a stale
+library. A failed build raises: there is no fallback path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+REPO_DIR = os.path.dirname(PKG_DIR)
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+
+
+def build_and_load(name: str, compiler: str, flags: list, sources: list):
+    """Compile `sources` into BUILD_DIR/lib<name>-<hash>.so and load it.
+
+    The compiler writes a temporary file that is renamed into place, so
+    processes that build the same library at once never load a half-written
+    one. Returns the ctypes.CDLL."""
+    exe = shutil.which(compiler)
+    if exe is None:
+        raise RuntimeError(f"{compiler} not found: cannot build {name}")
+    h = hashlib.sha256(" ".join([compiler] + flags).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    if not os.path.exists(lib):
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.run([exe] + flags + ["-o", tmp] + sources,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {name} failed ({compiler} exit {proc.returncode}):"
+                f"\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    return ctypes.CDLL(lib)
+
+
+def native_source(name: str) -> str:
+    """Path of a C++ source in the repository's shared native/ folder."""
+    src = os.path.join(REPO_DIR, "native", name)
+    if not os.path.exists(src):
+        raise FileNotFoundError(f"native source missing: {src}")
+    return src

@@ -1,0 +1,132 @@
+"""The port's kernel modules (sam_road_tpu_torch/ops) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU.
+
+On CPU tensors each wrapper takes its plain PyTorch version, so these tests
+hold that version to the Pallas kernel in fp32 (atol = rtol = 1e-5: the
+same math, summed in another order). The CUDA kernels themselves are held
+to these plain versions in tests/test_torch_cuda_kernels.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sam_road_tpu.ops import attention as jattn
+from sam_road_tpu.ops import fused_block as jblock
+from sam_road_tpu.ops import fused_ln as jln
+from sam_road_tpu_torch import _native
+from sam_road_tpu_torch.ops import attention, fused_block, fused_ln, sampling
+from sam_road_tpu_torch.ops import _build
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **(tol or TOL))
+
+
+def _ln_inputs(seed, M=64, C=64, F=192):
+    r = _rng(seed)
+    x = r.normal(size=(M, C)).astype(np.float32)
+    s = (1 + 0.1 * r.normal(size=C)).astype(np.float32)
+    b = (0.1 * r.normal(size=C)).astype(np.float32)
+    w = (r.normal(size=(C, F)) / np.sqrt(C)).astype(np.float32)  # JAX (in, out)
+    bias = (0.1 * r.normal(size=F)).astype(np.float32)
+    return x, s, b, w, bias
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_ln_dense_plain_matches_pallas(with_bias):
+    x, s, b, w, bias = _ln_inputs(0)
+    want = jln.ln_dense(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b), jnp.asarray(w),
+                        jnp.asarray(bias) if with_bias else None, interpret=True)
+    t = torch.from_numpy
+    got = fused_ln.ln_dense(t(x), t(s), t(b), t(w.T.copy()), t(bias) if with_bias else None)
+    _close(got, want)
+
+
+def test_proj_ln_mlp_residual_plain_matches_pallas():
+    r = _rng(1)
+    M, C, Hd = 64, 64, 256
+
+    def n(*shape, scale=1.0):
+        return (scale * r.normal(size=shape)).astype(np.float32)
+
+    x, a = n(M, C), n(M, C)
+    wp, bp = n(C, C, scale=C ** -0.5), n(C, scale=0.1)
+    s, b = 1 + n(C, scale=0.1), n(C, scale=0.1)
+    w1, b1 = n(C, Hd, scale=C ** -0.5), n(Hd, scale=0.1)
+    w2, b2 = n(Hd, C, scale=Hd ** -0.5), n(C, scale=0.1)
+    want = jln.proj_ln_mlp_residual(*map(jnp.asarray, (x, a, wp, bp, s, b, w1, b1, w2, b2)),
+                                    interpret=True)
+    t = torch.from_numpy
+    got = fused_ln.proj_ln_mlp_residual(t(x), t(a), t(wp.T.copy()), t(bp), t(s), t(b),
+                                        t(w1.T.copy()), t(b1), t(w2.T.copy()), t(b2))
+    _close(got, want)
+
+
+def test_window_attention_plain_matches_pallas_with_pad_tokens():
+    """A 6x6 grid padded to 8x8 at window 4 with 2 heads: the pad tokens are
+    zero in the bias-free grid and become `bias` keys in the kernel."""
+    r = _rng(2)
+    B, H, win, heads, C = 2, 6, 4, 2, 64
+    Hp = 8
+    grid = np.zeros((B, Hp, Hp, 3 * C), np.float32)
+    grid[:, :H, :H] = r.normal(size=(B, H, H, 3 * C))
+    bias = (0.5 * r.normal(size=3 * C)).astype(np.float32)
+    rows = (B, Hp // win, Hp // win, heads, win * win, win)
+    bh = r.normal(size=rows).astype(np.float32)
+    bw = r.normal(size=rows).astype(np.float32)
+    want = jblock.window_attention_rows_grid(jnp.asarray(grid), jnp.asarray(bias),
+                                             jnp.asarray(bh), jnp.asarray(bw), win,
+                                             heads, interpret=True)
+    t = torch.from_numpy
+    got = fused_block.window_attention_rows_grid(t(grid), t(bias), t(bh), t(bw), win, heads)
+    _close(got, want)
+
+
+def test_attention_relpos_rows_plain_matches_pallas():
+    r = _rng(3)
+    B, heads, H, W, D = 2, 2, 6, 6, 32
+    N = H * W
+    q = (r.normal(size=(B, heads, N, D)) * D ** -0.5).astype(np.float32)
+    k, v = (r.normal(size=(B, heads, N, D)).astype(np.float32) for _ in range(2))
+    bh = r.normal(size=(B, heads, N, H)).astype(np.float32)
+    bw = r.normal(size=(B, heads, N, W)).astype(np.float32)
+    want = jattn.attention_relpos_rows(*map(jnp.asarray, (q, k, v, bh, bw)), (H, W), True)
+    t = torch.from_numpy
+    got = attention.attention_relpos_rows(t(q), t(k), t(v), t(bh), t(bw), (H, W))
+    _close(got, want)
+
+
+def test_wrappers_take_plain_version_on_cpu_and_refuse_other_devices():
+    x, s, b, w, bias = map(torch.from_numpy, _ln_inputs(4))
+    w = w.T.contiguous()
+    torch.testing.assert_close(fused_ln.ln_dense(x, s, b, w, bias),
+                               fused_ln.ln_dense_plain(x, s, b, w, bias), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="device"):
+        fused_ln.ln_dense(x.to("meta"), s, b, w, bias)
+    assert not _build.launches  # no kernel launched on CPU tensors
+
+
+def test_failed_native_build_raises():
+    with pytest.raises(RuntimeError, match="not found"):
+        _native.build_and_load("nothing", "no-such-compiler-xyz", [], [])
+
+
+def test_bilinear_sample_points_matches_jax_including_outside_points():
+    from sam_road_tpu.ops.sampling import bilinear_sample_points as jsample
+
+    r = _rng(5)
+    feats = r.normal(size=(2, 6, 6, 8)).astype(np.float32)
+    pts = r.uniform(-12, 76, size=(2, 40, 2)).astype(np.float32)
+    pts[0, :4] = [[0, 0], [64, 64], [-5, 30], [70, 10]]  # corners and outside
+    want = jsample(jnp.asarray(feats), jnp.asarray(pts), 64)
+    got = sampling.bilinear_sample_points(torch.from_numpy(feats), torch.from_numpy(pts), 64)
+    _close(got, want)
