@@ -24,9 +24,10 @@ BUILD_DIR = os.path.join(PKG_DIR, "build")
 def build_and_load(name: str, compiler: str, flags: list, sources: list):
     """Compile `sources` into BUILD_DIR/lib<name>-<hash>.so and load it.
 
-    The compiler writes a temporary file that is renamed into place, so
-    processes that build the same library at once never load a half-written
-    one. Returns the ctypes.CDLL."""
+    The sources compile at once, one compiler process each, into objects
+    that one more call links. The compiler writes a temporary file
+    that is renamed into place, so processes that build the same library at
+    once never load a half-written one. Returns the ctypes.CDLL."""
     exe = shutil.which(compiler)
     if exe is None:
         raise RuntimeError(f"{compiler} not found: cannot build {name}")
@@ -38,14 +39,32 @@ def build_and_load(name: str, compiler: str, flags: list, sources: list):
     lib = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     if not os.path.exists(lib):
         tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run([exe] + flags + ["-o", tmp] + sources,
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {name} failed ({compiler} exit {proc.returncode}):"
-                f"\n{proc.stdout}\n{proc.stderr}")
+        objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+        compile_flags = [f for f in flags if f != "-shared"] + ["-c"]
+        try:
+            _run([[exe] + compile_flags + ["-o", o, s] for o, s in zip(objs, sources)],
+                 name, compiler)
+            _run([[exe] + flags + ["-o", tmp] + objs], name, compiler)
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
         os.replace(tmp, lib)
     return ctypes.CDLL(lib)
+
+
+def _run(commands: list, name: str, compiler: str) -> None:
+    """Run the commands all at once (one compiler process each) and raise
+    if any failed, after all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in commands]
+    failed = []
+    for proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{compiler} exit {proc.returncode}:\n{out}\n{err}")
+    if failed:
+        raise RuntimeError(f"building {name} failed ({'; '.join(failed)})")
 
 
 def native_source(name: str) -> str:

@@ -15,8 +15,9 @@
 // 268 MFLOP against 0.5 MB of q/k/v: compute, at the rate this simple wmma
 // (mma.sync) version reaches; the per-tile fp32 rescale of the output
 // through shared memory is its main overhead, to remove in a later PR.
-// The online tiling also works past the TPU's 1225-token VMEM limit, but
-// the port's encoder does not route the 1024 px config here yet (K5).
+// The online tiling also works past the TPU's 1225-token VMEM limit, so
+// the fused encoder runs the 1024 px config's 4096-token grid here too (not
+// measured yet), where the JAX package switches to K5.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

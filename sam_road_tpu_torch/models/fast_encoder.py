@@ -17,9 +17,10 @@ attention kernel adds the bias to every token, so each pad token equals
 `bias` = qkv(0), SAM's zero padding of the norm1 output. The bias rows
 bh = q.Rh, bw = q.Rw are precomputed for all windows and heads with the
 bias's share (bias_q . R) added analytically. Global blocks use K3 at every
-grid size: the JAX package's blocked fallback past ~1225 tokens (K5, the
-1024 px config) is not ported, and the JAX A/B switches PAD_FREE, XLA_TAIL
-and WIN_* keep their defaults and are not ported either.
+grid size: K3 tiles the keys, so the JAX package's switch to K5 past ~1225
+tokens (the 1024 px config) has no counterpart here, and the JAX A/B
+switches PAD_FREE, XLA_TAIL and WIN_* keep their defaults and are not
+ported.
 """
 
 from __future__ import annotations

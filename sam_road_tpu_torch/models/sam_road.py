@@ -1,7 +1,7 @@
 """SAMRoad: SAM ViT encoder + map decoder + TopoNet (counterpart of
-sam_road_tpu/models/sam_road.py), with the two inference entry points the
-engine uses. The SAM mask decoder, LoRA and training forward are not ported
-yet."""
+sam_road_tpu/models/sam_road.py): the training forward and the two
+inference entry points the engine uses. The SAM mask decoder and LoRA are
+not ported yet."""
 
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 class SAMRoad(nn.Module):
     def __init__(self, sam_version: str = "vit_b", patch_size: int = 512,
-                 toponet_version: str = "normal", dtype=torch.bfloat16):
+                 toponet_version: str = "normal", use_flash: bool = True,
+                 dtype=torch.bfloat16):
         super().__init__()
         if sam_version not in ENCODER_SPECS:
             raise ValueError(f"unknown SAM_VERSION {sam_version!r}")
@@ -33,7 +34,8 @@ class SAMRoad(nn.Module):
         self.image_encoder = ImageEncoderViT(
             img_size=patch_size, embed_dim=enc["embed_dim"], depth=enc["depth"],
             num_heads=enc["num_heads"],
-            global_attn_indexes=enc["global_attn_indexes"], dtype=dtype)
+            global_attn_indexes=enc["global_attn_indexes"], use_flash=use_flash,
+            dtype=dtype)
         self.map_decoder = MapDecoder()
         self.topo_net = TopoNet(feature_dim=256, version=toponet_version)
 
@@ -44,6 +46,7 @@ class SAMRoad(nn.Module):
         return cls(sam_version=str(config.SAM_VERSION),
                    patch_size=int(config.PATCH_SIZE),
                    toponet_version=str(config.TOPONET_VERSION or "normal"),
+                   use_flash=bool(config.FLASH_ATTENTION),
                    dtype=DTYPES[str(config.COMPUTE_DTYPE or "float32")])
 
     def normalize(self, rgb):
@@ -55,6 +58,21 @@ class SAMRoad(nn.Module):
     def decode_masks(self, embeddings):
         """Feature maps -> fp32 sigmoid mask scores [B, H, W, 2]."""
         return torch.sigmoid(self.map_decoder(embeddings).float())
+
+    def forward(self, rgb, graph_points, pairs, valid, deterministic=True, generator=None):
+        """Training forward (sam_road_tpu/models/sam_road.py::SAMRoad.__call__).
+
+        rgb [B, H, W, 3] uint8-range floats; graph_points [B, P, 2] (x, y)
+        patch pixels; pairs [B, S, K, 2] indices into graph_points; valid
+        [B, S, K] bool. Dropout in TopoNet draws from `generator` unless
+        deterministic. Returns fp32 mask_logits, mask_scores [B, H, W, 2] and
+        topo_logits, topo_scores [B, S, K, 1]."""
+        emb = self.image_encoder(self.normalize(rgb))
+        mask_logits = self.map_decoder(emb).float()
+        feats = bilinear_sample_points(emb, graph_points, self.patch_size)
+        topo_logits, topo_scores = self.topo_net(graph_points, feats, pairs, valid,
+                                                 deterministic, generator)
+        return mask_logits, torch.sigmoid(mask_logits), topo_logits.float(), topo_scores
 
     def infer_masks_and_features(self, rgb, encoder=None):
         """Phase 1: (mask scores [B, H, W, 2] fp32, embeddings [B, h, w, 256]).

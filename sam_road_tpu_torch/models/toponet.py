@@ -8,6 +8,9 @@ key-padding mask, and emits one logit per pair. Masked keys get
 finfo(float32).min and the softmax is fp32. Groups whose pairs are all
 invalid have their mask flipped to avoid NaN. The reference's dead
 'no_tgt_features' branch is kept: that version behaves as 'normal'.
+Training (deterministic=False) applies dropout at p = 0.1 after
+self-attention and twice in the feed-forward, as the JAX layer does, with
+masks drawn from an explicit torch.Generator.
 """
 
 from __future__ import annotations
@@ -47,6 +50,19 @@ class MultiheadSelfAttention(nn.Module):
         return linear(out, self.out_proj)
 
 
+DROPOUT = 0.1  # the reference layer's dropout rate
+
+
+def dropout(x, p: float, deterministic: bool, generator=None):
+    """Inverted dropout with the keep mask drawn from `generator` (flax
+    nn.Dropout semantics: kept entries scaled by 1 / (1 - p)); the identity
+    when deterministic."""
+    if deterministic:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - p, generator=generator)
+    return x * (keep / (1.0 - p)).to(x.dtype)
+
+
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, ffn_dim: int):
         super().__init__()
@@ -56,9 +72,13 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x, key_padding_mask=None):
-        x = layer_norm(x + self.self_attn(x, key_padding_mask), self.norm1)
-        h = linear(F.relu(linear(x, self.linear1)), self.linear2)
+    def forward(self, x, key_padding_mask=None, deterministic=True, generator=None):
+        def drop(t):
+            return dropout(t, DROPOUT, deterministic, generator)
+
+        x = layer_norm(x + drop(self.self_attn(x, key_padding_mask)), self.norm1)
+        h = drop(F.relu(linear(x, self.linear1)))
+        h = drop(linear(h, self.linear2))
         return layer_norm(x + h, self.norm2)
 
 
@@ -83,11 +103,12 @@ class TopoNet(nn.Module):
         ])
         self.output_proj = nn.Linear(hidden_dim, 1)
 
-    def forward(self, points, point_features, pairs, pairs_valid):
+    def forward(self, points, point_features, pairs, pairs_valid, deterministic=True,
+                generator=None):
         """points [B, P, 2], point_features [B, P, D], pairs [B, S, K, 2]
         indices into the points, pairs_valid [B, S, K] bool. Returns
         (logits, fp32 scores), both [B, S, K, 1]. Runs in the dtype of
-        point_features."""
+        point_features; dropout only with deterministic=False."""
         dt = point_features.dtype
         pf = F.relu(linear(point_features, self.feature_proj))
         B, S, K, _ = pairs.shape
@@ -108,6 +129,6 @@ class TopoNet(nn.Module):
         padding_mask = ~(valid | all_invalid)
         if self.version != "no_transformer":
             for layer in self.transformer_encoder.layers:
-                pair_f = layer(pair_f, padding_mask)
+                pair_f = layer(pair_f, padding_mask, deterministic, generator)
         logits = linear(pair_f.reshape(B, S, K, self.hidden_dim), self.output_proj)
         return logits, torch.sigmoid(logits.float())

@@ -3,11 +3,16 @@ sam_road_tpu/models/vit.py).
 
 Parameters carry SAM's torch names (patch_embed.proj, blocks.{i}.attn.qkv,
 neck.{0..3}, ...), so a SAM state dict loads by name. `forward` is the
-plain eager math: windowed and global attention with decomposed relative
+eager math: windowed and global attention with decomposed relative
 position bias, zero padding of the norm1 output into windows, and a neck
-with LayerNorm2d at eps 1e-6. Inputs and outputs are NHWC like the JAX
-encoder; weights stay float32 and are cast to the compute dtype at use.
-The fused path over the same module is models/fast_encoder.py.
+with LayerNorm2d at eps 1e-6. With `use_flash` (FLASH_ATTENTION), every
+attention over at least 128 tokens folds the bias into q and k
+(fold_rel_pos_qk) and runs through K5, ops.attention.fused_attention, as
+the JAX encoder's vit.py:181-196 does on the TPU; the rest is plain torch
+and differentiable, so this is the training encoder. Inputs and outputs are
+NHWC like the JAX encoder; weights stay float32 and are cast to the compute
+dtype at use. The fused inference path over the same module is
+models/fast_encoder.py.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sam_road_tpu_torch.ops.attention import fused_attention
 
 ENCODER_SPECS = {
     "vit_b": dict(embed_dim=768, depth=12, num_heads=12, global_attn_indexes=(2, 5, 8, 11)),
@@ -64,13 +71,36 @@ def layer_norm(x, norm: nn.LayerNorm):
                         norm.bias, norm.eps).to(x.dtype)
 
 
+def fold_rel_pos_qk(q, k, Rh, Rw, hw, scale):
+    """Fold the decomposed rel-pos bias into one score product
+    (sam_road_tpu/models/vit.py::fold_rel_pos_qk over the full grid):
+      q~ = [q * scale, q.Rh (row qh), q.Rw (row qw)]
+      k~ = [k,         onehot(kh),    onehot(kw)]
+    so q~.k~ = q.k * scale + rel_h[qh, kh] + rel_w[qw, kw]. q, k [G, nH, N,
+    hd] over the (H, W) grid, N = H * W; Rh [H, H, hd], Rw [W, W, hd] in
+    q's dtype. The one-hot columns are exact in bf16."""
+    H, W = hw
+    G, nh, N, hd = q.shape
+    r_q = q.reshape(G, nh, H, W, hd)
+    qh = torch.einsum("gnhwc,hkc->gnhwk", r_q, Rh).reshape(G, nh, N, H)
+    qw = torch.einsum("gnhwc,wkc->gnhwk", r_q, Rw).reshape(G, nh, N, W)
+    q_aug = torch.cat([q * scale, qh, qw], dim=-1)
+    idx = torch.arange(N, device=q.device)
+    pos = torch.cat([F.one_hot(idx // W, H), F.one_hot(idx % W, W)], dim=1).to(q.dtype)
+    k_aug = torch.cat([k, pos.expand(G, nh, N, H + W)], dim=-1)
+    return q_aug, k_aug
+
+
 class Attention(nn.Module):
     """Multi-head attention with decomposed relative position bias over a
-    (H, W) token grid (a window, or the whole grid in global blocks)."""
+    (H, W) token grid (a window, or the whole grid in global blocks). With
+    use_flash and H * W >= 128 it runs through K5 over the folded q and k;
+    otherwise the bias is added to the score matrix."""
 
-    def __init__(self, dim: int, num_heads: int, input_size: tuple):
+    def __init__(self, dim: int, num_heads: int, input_size: tuple, use_flash: bool = True):
         super().__init__()
         self.num_heads = num_heads
+        self.use_flash = use_flash
         head_dim = dim // num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
@@ -83,17 +113,21 @@ class Attention(nn.Module):
         hd = C // nh
         qkv = linear(x.reshape(B, H * W, C), self.qkv)
         q, k, v = qkv.reshape(B, H * W, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        attn = torch.matmul(q * hd ** -0.5, k.transpose(-1, -2)).float()
         Rh = rel_pos_table(H, self.rel_pos_h).to(x.dtype)
         Rw = rel_pos_table(W, self.rel_pos_w).to(x.dtype)
-        r_q = q.reshape(B, nh, H, W, hd)
-        rel_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, Rh).float()
-        rel_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, Rw).float()
-        attn = (attn.reshape(B, nh, H, W, H, W) + rel_h[..., None]
-                + rel_w[..., None, :]).reshape(B, nh, H * W, H * W)
-        attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v).permute(0, 2, 1, 3).reshape(B, H, W, C)
-        return linear(out, self.proj)
+        if self.use_flash and H * W >= 128:
+            q_aug, k_aug = fold_rel_pos_qk(q, k, Rh, Rw, (H, W), hd ** -0.5)
+            out = fused_attention(q_aug, k_aug, v.contiguous())
+        else:
+            attn = torch.matmul(q * hd ** -0.5, k.transpose(-1, -2)).float()
+            r_q = q.reshape(B, nh, H, W, hd)
+            rel_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, Rh).float()
+            rel_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, Rw).float()
+            attn = (attn.reshape(B, nh, H, W, H, W) + rel_h[..., None]
+                    + rel_w[..., None, :]).reshape(B, nh, H * W, H * W)
+            attn = torch.softmax(attn, dim=-1).to(x.dtype)
+            out = torch.matmul(attn, v)
+        return linear(out.permute(0, 2, 1, 3).reshape(B, H, W, C), self.proj)
 
 
 class MLPBlock(nn.Module):
@@ -129,12 +163,12 @@ def window_unpartition(windows, ws: int, pad_hw, hw):
 class Block(nn.Module):
     """LN -> (windowed) attention -> residual -> LN -> MLP -> residual."""
 
-    def __init__(self, dim, num_heads, mlp_ratio, window_size, input_size):
+    def __init__(self, dim, num_heads, mlp_ratio, window_size, input_size, use_flash=True):
         super().__init__()
         self.window_size = window_size
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         attn_size = (window_size, window_size) if window_size > 0 else input_size
-        self.attn = Attention(dim, num_heads, attn_size)
+        self.attn = Attention(dim, num_heads, attn_size, use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
 
@@ -168,7 +202,7 @@ class ImageEncoderViT(nn.Module):
 
     def __init__(self, img_size=1024, patch_size=16, embed_dim=768, depth=12,
                  num_heads=12, mlp_ratio=4.0, out_chans=256, window_size=14,
-                 global_attn_indexes=(2, 5, 8, 11), dtype=torch.float32):
+                 global_attn_indexes=(2, 5, 8, 11), use_flash=True, dtype=torch.float32):
         super().__init__()
         self.img_size = img_size
         self.embed_dim = embed_dim
@@ -181,7 +215,7 @@ class ImageEncoderViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, grid, grid, embed_dim))
         self.blocks = nn.ModuleList([
             Block(embed_dim, num_heads, mlp_ratio,
-                  0 if i in self.global_attn_indexes else window_size, (grid, grid))
+                  0 if i in self.global_attn_indexes else window_size, (grid, grid), use_flash)
             for i in range(depth)
         ])
         self.neck = nn.Sequential(

@@ -20,7 +20,7 @@ import shutil
 from sam_road_tpu_torch._native import PKG_DIR, build_and_load
 
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu")
+SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "flash_attention.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -36,6 +36,7 @@ _SIGNATURES = {
     "samroad_proj_ln_mlp_residual": [_P] * 13 + [_I] * 3 + [_P],
     "samroad_window_attention": [_P] * 5 + [_I] * 6 + [_P],
     "samroad_relpos_attention": [_P] * 6 + [_I] * 4 + [_P],
+    "samroad_flash_attention": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 

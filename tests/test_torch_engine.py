@@ -7,9 +7,15 @@ JAX engine with the same weights through the bridge: fused masks within 1
 uint8 level, vertex counts within 2 (the bound of
 tests/test_fast_encoder.py's engine test), edge-set Jaccard >= 0.95
 (observed 1.0: identical graphs).
+
+Every comparison with the JAX host code runs against its native C++ path
+(_load_jax_native): with a silent scipy fallback the JAX side would break
+nearest-k distance ties differently.
 """
 
 import os
+import shutil
+import time
 
 import numpy as np
 import pytest
@@ -17,6 +23,8 @@ import pytest
 import jax
 
 from sam_road_tpu import config as jconfig
+from sam_road_tpu.graph import nms as jnms_module
+from sam_road_tpu.inference import pairs as jpairs_module
 from sam_road_tpu.data.partitions import get_patch_info_one_img as jpatch_info
 from sam_road_tpu.graph.extraction import extract_graph_points as jextract
 from sam_road_tpu.graph.nms import nms_points as jnms
@@ -38,6 +46,42 @@ ENGINE = dict(
     TOPO_THRESHOLD=0.4, ITSC_NMS_RADIUS=4, ROAD_NMS_RADIUS=8, NEIGHBOR_RADIUS=24,
     MAX_NEIGHBOR_QUERIES=4, FUSED_ENCODER=True,
 )
+
+
+def _load_jax_native(attempts: int = 20, pause: float = 0.25):
+    """Load the JAX package's native NMS and pairs libraries, retrying.
+
+    Both build straight into the shared native/build/lib*.so with a
+    non-atomic `g++ -o`. Test workers that import them at once (this file,
+    tests/test_pairs_native.py, tests/test_inference_engine.py) can load a
+    half-written file; the JAX loader swallows that failure and stays on its
+    scipy fallback for the rest of the process. So while g++ exists and a
+    load fails, clear the module's tried flag and load again, then require
+    both."""
+    if shutil.which("g++") is None:
+        return
+    for module in (jnms_module, jpairs_module):
+        for _ in range(attempts):
+            if module._load_native() is not None:
+                break
+            module._NATIVE_TRIED = False
+            time.sleep(pause)
+        assert module._load_native() is not None, f"{module.__name__} native library"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_native():
+    _load_jax_native()
+
+
+def test_load_jax_native_recovers_from_a_failed_load(monkeypatch):
+    """A load that failed once (the state a half-written library leaves)
+    is retried until the library loads."""
+    for module in (jnms_module, jpairs_module):
+        monkeypatch.setattr(module, "_NATIVE", None)
+        monkeypatch.setattr(module, "_NATIVE_TRIED", True)
+    _load_jax_native(pause=0.0)
+    assert jnms_module._NATIVE is not None and jpairs_module._NATIVE is not None
 
 
 def test_config_defaults_match_jax_package_key_for_key():

@@ -187,6 +187,8 @@ def test_import_and_forward_load_neither_jax_nor_the_jax_package():
         "from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random\n"
         "from sam_road_tpu_torch.models.fast_encoder import encoder_forward_fused\n"
         "from sam_road_tpu_torch.inference.engine import TiledInferenceEngine\n"
+        "from sam_road_tpu_torch.training.harness import Trainer\n"
+        "from sam_road_tpu_torch.data.dataset import collate_batch\n"
         "cfg = load_config(overrides=dict(SAM_VERSION='vit_t', PATCH_SIZE=64,"
         " COMPUTE_DTYPE='float32'))\n"
         "m = init_random(SAMRoad.from_config(cfg), 0)\n"

@@ -105,6 +105,30 @@ def test_attention_relpos_rows_plain_matches_pallas():
     _close(got, want)
 
 
+@pytest.mark.parametrize("B,H,N,D,dv", [
+    (1, 2, 196, 60, 32),   # a vit_t window: 14 x 14 tokens, head_dim 32 + 14 + 14
+    (1, 2, 1024, 128, 64),  # the ViT-B 512 px global grid
+    (1, 1, 4096, 192, 64),  # the 1024 px config's global grid (the blocked kernel)
+])
+def test_fused_attention_matches_pallas_forward_and_vjp(B, H, N, D, dv):
+    """K5 on CPU (plain forward, recompute backward) against the JAX
+    fused_attention in interpret mode and its custom_vjp, in fp32."""
+    import jax
+
+    r = _rng(N)
+    q = (r.normal(size=(B, H, N, D)) * D ** -0.5).astype(np.float32)
+    k = r.normal(size=(B, H, N, D)).astype(np.float32)
+    v, g = (r.normal(size=(B, H, N, dv)).astype(np.float32) for _ in range(2))
+    want, vjp = jax.vjp(lambda *a: jattn.fused_attention(*a, True), *map(jnp.asarray, (q, k, v)))
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    got = attention.fused_attention(*leaves)
+    got.backward(torch.from_numpy(g))
+    _close(got, want)
+    for leaf, grad in zip(leaves, vjp(jnp.asarray(g))):
+        _close(leaf.grad, grad)
+    assert not _build.launches  # no kernel launched on CPU tensors
+
+
 def test_wrappers_take_plain_version_on_cpu_and_refuse_other_devices():
     x, s, b, w, bias = map(torch.from_numpy, _ln_inputs(4))
     w = w.T.contiguous()
@@ -112,6 +136,9 @@ def test_wrappers_take_plain_version_on_cpu_and_refuse_other_devices():
                                fused_ln.ln_dense_plain(x, s, b, w, bias), rtol=0, atol=0)
     with pytest.raises(ValueError, match="device"):
         fused_ln.ln_dense(x.to("meta"), s, b, w, bias)
+    q = torch.ones(1, 1, 4, 8)
+    with pytest.raises(ValueError, match="device"):
+        attention.fused_attention(q.to("meta"), q.to("meta"), q.to("meta"))
     assert not _build.launches  # no kernel launched on CPU tensors
 
 
