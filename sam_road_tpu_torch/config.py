@@ -3,8 +3,10 @@
 The same attribute dict, falsy-missing-key semantics and DEFAULTS as the
 JAX package's config (sam_road_tpu/config.py), so one YAML file or override
 dict configures either package; a test holds the two DEFAULTS equal key for
-key. PyYAML is imported only when a file is read: overrides alone (as
-chip_smoke.py uses) need nothing beyond the standard library.
+key. The GPU machine has no PyYAML, so files are read and written in the
+flat subset every file in configs/ uses (`KEY: value  # comment`, scalars
+only) by read_flat_yaml / write_flat_yaml, which a test holds to
+yaml.safe_load.
 
 Keys that exist only for the TPU engine (streaming, upload bands, meshes,
 phase-2 packing/device aggregation/fetch waves/speculation, kernel A/B
@@ -15,6 +17,10 @@ switches) are carried so configs stay shared, and the port ignores them
 from __future__ import annotations
 
 import copy
+import math
+import os
+import re
+from datetime import datetime
 from typing import Any, Mapping
 
 
@@ -211,17 +217,117 @@ DEFAULTS: dict = {
 }
 
 
+_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
+_INT = re.compile(r"[-+]?(0|[1-9][0-9]*)")
+# YAML 1.1's float form as PyYAML reads it: a dot, and a signed exponent
+_FLOAT = re.compile(r"([-+]?[0-9]+\.[0-9]*|\.[0-9]+)([eE][-+][0-9]+)?")
+_WORDS = {"true": True, "True": True, "TRUE": True, "false": False, "False": False,
+          "FALSE": False, "null": None, "Null": None, "NULL": None, "~": None, "": None}
+
+
+def _parse_value(text: str, where: str):
+    """One scalar of the flat subset, as yaml.safe_load reads it: a quoted
+    string, an int, a float, a boolean or null, then an optional comment."""
+    if text[:1] in ("'", '"'):
+        q = text[0]
+        i, out = 1, []
+        while i < len(text):
+            ch = text[i]
+            if ch == q and q == "'" and text[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            if ch == q:
+                break
+            if ch == "\\" and q == '"':
+                raise ValueError(f"{where}: escapes in double-quoted strings are not read")
+            out.append(ch)
+            i += 1
+        else:
+            raise ValueError(f"{where}: unterminated string")
+        rest = text[i + 1:]
+        if rest.strip() and not re.match(r"\s+#", rest):
+            raise ValueError(f"{where}: text after the closing quote")
+        return "".join(out)
+    value = re.split(r"\s+#", " " + text, maxsplit=1)[0].strip()
+    if value in _WORDS:
+        return _WORDS[value]
+    if _INT.fullmatch(value):
+        return int(value)
+    if _FLOAT.fullmatch(value):
+        return float(value)
+    raise ValueError(f"{where}: {value!r} is not a quoted string, number, boolean or null")
+
+
+def read_flat_yaml(path: str) -> dict:
+    """The flat YAML subset every file in configs/ uses, without PyYAML:
+    one `KEY: value  # comment` per line, no nesting, no lists. Raises on
+    any line outside it and on a repeated key."""
+    out: dict = {}
+    with open(path) as f:
+        for n, line in enumerate(f, 1):
+            where = f"{path}:{n}"
+            body = line.rstrip("\n")
+            if not body.strip() or body.lstrip().startswith("#"):
+                continue
+            key, sep, rest = body.partition(":")
+            if not sep or not _KEY.fullmatch(key) or (rest and not rest[0].isspace()):
+                raise ValueError(f"{where}: not a flat `KEY: value` line: {body!r}")
+            if key in out:
+                raise ValueError(f"{where}: key {key} repeated")
+            out[key] = _parse_value(rest.strip(), where)
+    return out
+
+
+def _format_value(key: str, v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if not math.isfinite(v):
+            raise ValueError(f"config key {key}: {v} cannot be written")
+        mantissa, e, exp = repr(v).partition("e")  # repr signs its exponent
+        return mantissa + ("" if "." in mantissa else ".0") + e + exp
+    if isinstance(v, str) and "\n" not in v:
+        return "'" + v.replace("'", "''") + "'"
+    raise ValueError(f"config key {key}: {v!r} is not a scalar of the flat subset")
+
+
+def write_flat_yaml(path: str, values: Mapping[str, Any]) -> None:
+    """Write `values` in the subset read_flat_yaml (and yaml.safe_load)
+    reads back equal."""
+    lines = []
+    for key, v in values.items():
+        if not _KEY.fullmatch(key):
+            raise ValueError(f"config key {key!r} cannot be written")
+        lines.append(f"{key}: {_format_value(key, v)}\n")
+    with open(path, "w") as f:
+        f.writelines(lines)
+
+
 def load_config(path: str | None = None, overrides: Mapping[str, Any] | None = None) -> Config:
-    """Load a YAML config on top of DEFAULTS, then apply overrides."""
+    """Load a flat YAML config (read_flat_yaml) on top of DEFAULTS, then
+    apply overrides."""
     cfg = Config.from_dict(DEFAULTS)
     if path is not None:
-        import yaml
-
-        with open(path) as f:
-            loaded = yaml.safe_load(f) or {}
-        for k, v in loaded.items():
-            cfg[k] = Config.from_dict(v) if isinstance(v, Mapping) else v
+        cfg.update(read_flat_yaml(path))
     if overrides:
         for k, v in overrides.items():
             cfg[k] = v
     return cfg
+
+
+def create_output_dir_and_save_config(output_dir_prefix: str, config: Config,
+                                      specified_dir: str | None = None) -> str:
+    """Create the run directory (`specified_dir`, or the prefix and a
+    timestamp) and write the config to config.yaml in it."""
+    if specified_dir:
+        output_dir = specified_dir
+    else:
+        output_dir = f"{output_dir_prefix}_{datetime.now().strftime('%Y%m%d_%H%M%S')}"
+    os.makedirs(output_dir, exist_ok=True)
+    write_flat_yaml(os.path.join(output_dir, "config.yaml"), config.to_dict())
+    return output_dir

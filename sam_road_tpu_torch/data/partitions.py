@@ -1,9 +1,35 @@
-"""The overlapping patch-grid planner (counterpart of
-sam_road_tpu/data/partitions.py:get_patch_info_one_img)."""
+"""Dataset partitions and the overlapping patch-grid planner (counterpart of
+sam_road_tpu/data/partitions.py)."""
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
+
+
+def cityscale_data_partition():
+    """The index-mod split of the 180 Cityscale tiles: (train, validation,
+    test) index lists."""
+    train, test, validation = [], [], []
+    for x in range(180):
+        if x % 10 < 8:
+            train.append(x)
+        if x % 10 == 9:
+            test.append(x)
+        if x % 20 == 18:
+            validation.append(x)
+        if x % 20 == 8:
+            test.append(x)
+    return train, validation, test
+
+
+def spacenet_data_partition(split_json_path: str = "./spacenet/data_split.json"):
+    """The named (train, validation, test) tile lists of a SpaceNet split
+    file."""
+    with open(split_json_path) as f:
+        data_list = json.load(f)
+    return data_list["train"], data_list["validation"], data_list["test"]
 
 
 def get_patch_info_one_img(

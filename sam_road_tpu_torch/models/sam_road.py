@@ -23,7 +23,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class SAMRoad(nn.Module):
     def __init__(self, sam_version: str = "vit_b", patch_size: int = 512,
                  toponet_version: str = "normal", use_flash: bool = True,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, remat: bool = False):
         super().__init__()
         if sam_version not in ENCODER_SPECS:
             raise ValueError(f"unknown SAM_VERSION {sam_version!r}")
@@ -35,7 +35,7 @@ class SAMRoad(nn.Module):
             img_size=patch_size, embed_dim=enc["embed_dim"], depth=enc["depth"],
             num_heads=enc["num_heads"],
             global_attn_indexes=enc["global_attn_indexes"], use_flash=use_flash,
-            dtype=dtype)
+            dtype=dtype, remat=remat)
         self.map_decoder = MapDecoder()
         self.topo_net = TopoNet(feature_dim=256, version=toponet_version)
 
@@ -47,7 +47,8 @@ class SAMRoad(nn.Module):
                    patch_size=int(config.PATCH_SIZE),
                    toponet_version=str(config.TOPONET_VERSION or "normal"),
                    use_flash=bool(config.FLASH_ATTENTION),
-                   dtype=DTYPES[str(config.COMPUTE_DTYPE or "float32")])
+                   dtype=DTYPES[str(config.COMPUTE_DTYPE or "float32")],
+                   remat=bool(config.REMAT_ENCODER))
 
     def normalize(self, rgb):
         """uint8-range [B, H, W, 3] -> normalised input in self.dtype."""
@@ -59,15 +60,19 @@ class SAMRoad(nn.Module):
         """Feature maps -> fp32 sigmoid mask scores [B, H, W, 2]."""
         return torch.sigmoid(self.map_decoder(embeddings).float())
 
-    def forward(self, rgb, graph_points, pairs, valid, deterministic=True, generator=None):
+    def forward(self, rgb, graph_points, pairs, valid, deterministic=True, generator=None,
+                encoder=None):
         """Training forward (sam_road_tpu/models/sam_road.py::SAMRoad.__call__).
 
         rgb [B, H, W, 3] uint8-range floats; graph_points [B, P, 2] (x, y)
         patch pixels; pairs [B, S, K, 2] indices into graph_points; valid
         [B, S, K] bool. Dropout in TopoNet draws from `generator` unless
-        deterministic. Returns fp32 mask_logits, mask_scores [B, H, W, 2] and
-        topo_logits, topo_scores [B, S, K, 1]."""
-        emb = self.image_encoder(self.normalize(rgb))
+        deterministic. `encoder(module, x)` replaces the eager encoder
+        forward (training/harness.py::_fused_forward passes the
+        differentiable fused one). Returns fp32 mask_logits, mask_scores
+        [B, H, W, 2] and topo_logits, topo_scores [B, S, K, 1]."""
+        x = self.normalize(rgb)
+        emb = self.image_encoder(x) if encoder is None else encoder(self.image_encoder, x)
         mask_logits = self.map_decoder(emb).float()
         feats = bilinear_sample_points(emb, graph_points, self.patch_size)
         topo_logits, topo_scores = self.topo_net(graph_points, feats, pairs, valid,

@@ -11,8 +11,10 @@ attention over at least 128 tokens folds the bias into q and k
 the JAX encoder's vit.py:181-196 does on the TPU; the rest is plain torch
 and differentiable, so this is the training encoder. Inputs and outputs are
 NHWC like the JAX encoder; weights stay float32 and are cast to the compute
-dtype at use. The fused inference path over the same module is
-models/fast_encoder.py.
+dtype at use. With `remat` (REMAT_ENCODER) each block is checkpointed
+(torch.utils.checkpoint), as the JAX encoder's nn.remat(Block): only the
+block inputs persist to the backward pass, which recomputes the block. The
+fused path over the same module is models/fast_encoder.py.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sam_road_tpu_torch.ops.attention import fused_attention
 
@@ -202,9 +205,11 @@ class ImageEncoderViT(nn.Module):
 
     def __init__(self, img_size=1024, patch_size=16, embed_dim=768, depth=12,
                  num_heads=12, mlp_ratio=4.0, out_chans=256, window_size=14,
-                 global_attn_indexes=(2, 5, 8, 11), use_flash=True, dtype=torch.float32):
+                 global_attn_indexes=(2, 5, 8, 11), use_flash=True, dtype=torch.float32,
+                 remat=False):
         super().__init__()
         self.img_size = img_size
+        self.remat = remat
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.window_size = window_size
@@ -240,6 +245,7 @@ class ImageEncoderViT(nn.Module):
 
     def forward(self, x):
         x = self.embed(x)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
         return self.apply_neck(x)

@@ -1,4 +1,5 @@
-"""Build, load and count the port's CUDA kernels (csrc/*.cu).
+"""Build, load and count the port's CUDA kernels (csrc/*.cu), and the
+recompute backward of their differentiable wrappers.
 
 All sources are compiled by nvcc into one shared library with a plain C
 interface at first use, into the git-ignored build directory, under a name
@@ -90,6 +91,25 @@ def require(t, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def recompute_vjp(ctx, plain, g, *static):
+    """The backward of a differentiable wrapper whose forward launched a
+    kernel (K6): re-run `plain` (the kernel's plain PyTorch version) on
+    detached copies of the saved inputs and return torch.autograd.grad of it
+    against the cotangent g, as jax.vjp(ref, *residuals)(g) does in the JAX
+    package's custom_vjp backwards. `static` are the non-tensor arguments
+    after the tensors. Launches no custom kernel. Gradients come in each
+    input's dtype; None for an input that is None or needs none."""
+    import torch
+
+    saved = ctx.saved_tensors
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(plain(*leaves, *static), wanted, g) if wanted else ())
+    return tuple(next(grads) if t is not None and t.requires_grad else None for t in leaves)
 
 
 def on_cpu(t) -> bool:

@@ -6,6 +6,12 @@ K5 fused_attention: softmax(q.k^T).v with the rel-pos folded into the
 contraction (models/vit.py::fold_rel_pos_qk), every attention of the eager
 encoder with use_flash on (the training path). Differentiable: its backward
 recomputes in plain PyTorch, as the JAX custom_vjp recomputes in XLA.
+K6 attention_relpos_rows_d: K3 under an autograd.Function (the fused
+training encoder, FUSED_ENCODER_TRAIN) replacing the JAX custom_vjp of that
+name (attention.py:241-261); its backward recomputes
+attention_relpos_rows_plain under autograd (_build.recompute_vjp) and
+launches no custom kernel. On a CUDA tensor the forward counts under the
+kernel's name and the wrapper's.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel (csrc/relpos_attention.cu, csrc/flash_attention.cu) or
@@ -68,6 +74,31 @@ def attention_relpos_rows(q, k, v, bh, bw, hw):
         "attention_relpos_rows")
     _build.launches["attention_relpos_rows"] += 1
     return out
+
+
+class _AttentionRelposRowsD(torch.autograd.Function):
+    """K6 attention_relpos_rows_d: K3 forward, saving (q, k, v, bh, bw);
+    backward = autograd of attention_relpos_rows_plain recomputed on
+    them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bh, bw, hw):
+        ctx.save_for_backward(q, k, v, bh, bw)
+        ctx.hw = hw
+        out = attention_relpos_rows(q, k, v, bh, bw, hw)
+        if not _build.on_cpu(q):
+            _build.launches["attention_relpos_rows_d"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _build.recompute_vjp(ctx, attention_relpos_rows_plain, g, ctx.hw) + (None,)
+
+
+def attention_relpos_rows_d(q, k, v, bh, bw, hw):
+    """K6: differentiable attention_relpos_rows (the global blocks of the
+    training encoder)."""
+    return _AttentionRelposRowsD.apply(q, k, v, bh, bw, hw)
 
 
 def fused_attention_plain(q, k, v):

@@ -13,6 +13,12 @@ adds the qkv bias to every token (pad tokens become exactly `bias`), pads
 the 196 tokens to 208 rows with -inf pad keys, keeps each 16-query score
 strip in shared memory, normalises after p.v, and writes the output back in
 grid layout, so no window partition or unpartition pass touches HBM.
+
+K6: window_attention_rows_grid_d is an autograd.Function that replaces the
+JAX custom_vjp wrapper of that name (fused_block.py:444-467): K2 forward,
+the primal inputs saved, and a backward that recomputes the plain version
+under autograd (_build.recompute_vjp) and launches no custom kernel. On a
+CUDA tensor the forward counts under the kernel's name and the wrapper's.
 """
 
 from __future__ import annotations
@@ -77,3 +83,29 @@ def window_attention_rows_grid(qkv_grid, qkv_bias, bh, bw, win: int,
         _build.stream_of(qkv_grid)), "window_attention_rows_grid")
     _build.launches["window_attention_rows_grid"] += 1
     return out
+
+
+class _WindowAttentionRowsGridD(torch.autograd.Function):
+    """K6 window_attention_rows_grid_d: K2 forward, saving (qkv_grid,
+    qkv_bias, bh, bw); backward = autograd of
+    window_attention_rows_grid_plain recomputed on them."""
+
+    @staticmethod
+    def forward(ctx, qkv_grid, qkv_bias, bh, bw, win, num_heads):
+        ctx.save_for_backward(qkv_grid, qkv_bias, bh, bw)
+        ctx.static = (win, num_heads)
+        out = window_attention_rows_grid(qkv_grid, qkv_bias, bh, bw, win, num_heads)
+        if not _build.on_cpu(qkv_grid):
+            _build.launches["window_attention_rows_grid_d"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _build.recompute_vjp(ctx, window_attention_rows_grid_plain, g,
+                                    *ctx.static) + (None, None)
+
+
+def window_attention_rows_grid_d(qkv_grid, qkv_bias, bh, bw, win: int, num_heads: int):
+    """K6: differentiable window_attention_rows_grid (the windowed blocks
+    of the training encoder)."""
+    return _WindowAttentionRowsGridD.apply(qkv_grid, qkv_bias, bh, bw, win, num_heads)

@@ -17,6 +17,15 @@ x1 in fp32 through LN2 and the last residual), mid = GELU(LN2(x1).W1 + b1)
 in bf16 with LN2 as the GEMM's prologue, out = x1 + b2 + mid.W2. GELU uses
 CUDA's exact erff, where the Pallas kernel uses Abramowitz-Stegun
 (|err| <= 1.5e-7).
+
+K6 (the training path, FUSED_ENCODER_TRAIN): ln_dense_d, ln_dense_bias_d
+and proj_ln_mlp_residual_d are autograd.Functions that replace the JAX
+custom_vjp wrappers of the same names (fused_ln.py:326-399). The forward
+launches K1 or K4 and saves exactly the primal inputs, the residuals JAX
+saves; the backward recomputes the plain version under autograd on them
+(_build.recompute_vjp), as JAX's backward is jax.vjp of the XLA reference,
+and launches no custom kernel. On a CUDA tensor the forward counts once
+under the kernel's name and once under the wrapper's.
 """
 
 from __future__ import annotations
@@ -123,3 +132,52 @@ def proj_ln_mlp_residual(x, attn_out, wp, bp, ln_scale, ln_bias, w1, b1, w2,
         out.data_ptr(), M, C, Fh, _build.stream_of(x)), "proj_ln_mlp_residual")
     _build.launches["proj_ln_mlp_residual"] += 1
     return out
+
+
+class _LnDenseD(torch.autograd.Function):
+    """K6 ln_dense_d / ln_dense_bias_d: K1 forward, saving the primal
+    inputs; backward = autograd of ln_dense_plain recomputed on them."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w, bias):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w, bias)
+        out = ln_dense(x, ln_scale, ln_bias, w, bias)
+        if not _build.on_cpu(x):
+            _build.launches["ln_dense_d" if bias is None else "ln_dense_bias_d"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _build.recompute_vjp(ctx, ln_dense_plain, g)
+
+
+def ln_dense_d(x, ln_scale, ln_bias, w):
+    """K6: differentiable ln_dense without output bias (the windowed qkv)."""
+    return _LnDenseD.apply(x, ln_scale, ln_bias, w, None)
+
+
+def ln_dense_bias_d(x, ln_scale, ln_bias, w, bias):
+    """K6: differentiable ln_dense with output bias (the global qkv)."""
+    return _LnDenseD.apply(x, ln_scale, ln_bias, w, bias)
+
+
+class _ProjLnMlpResidualD(torch.autograd.Function):
+    """K6 proj_ln_mlp_residual_d: K4 forward, saving the primal inputs;
+    backward = autograd of proj_ln_mlp_residual_plain recomputed on them."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        out = proj_ln_mlp_residual(*args)
+        if not _build.on_cpu(args[0]):
+            _build.launches["proj_ln_mlp_residual_d"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _build.recompute_vjp(ctx, proj_ln_mlp_residual_plain, g)
+
+
+def proj_ln_mlp_residual_d(x, attn_out, wp, bp, ln_scale, ln_bias, w1, b1, w2, b2):
+    """K6: differentiable proj_ln_mlp_residual (the whole block tail)."""
+    return _ProjLnMlpResidualD.apply(x, attn_out, wp, bp, ln_scale, ln_bias, w1, b1, w2, b2)

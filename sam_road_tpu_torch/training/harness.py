@@ -12,20 +12,27 @@ A frozen encoder keeps requires_grad and stays out of the optimizer: its
 gradients are computed and count in grad_norm and in clipping, as the JAX
 package's optax.set_to_zero group does. Parameters stay fp32 (the model
 casts to the compute dtype at use), so gradients and Adam's moments are
-fp32. Not ported yet: the K6 path (FUSED_ENCODER_TRAIN), LoRA, the
-validation panels and the metrics logger.
+fp32. With FUSED_ENCODER_TRAIN the training forward runs the encoder
+through the K6 wrappers (_fused_forward: K1-K4 forward, plain-PyTorch
+recompute backward); the eval step and the validation panels stay on the
+eager model, as the JAX eval step stays on the flax model. REMAT_ENCODER
+checkpoints each encoder block on both paths. Not ported yet: LoRA and the
+SAM decoder.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
+from sam_road_tpu_torch.models.fast_encoder import encoder_forward_fused
 from sam_road_tpu_torch.ops.losses import bce_with_logits, masked_topo_loss, sigmoid_focal_loss
 from sam_road_tpu_torch.ops.metrics import binary_f1_counts, binary_iou_counts, pr_histogram
+from sam_road_tpu_torch.utils.viz import save_val_visualizations
 
 
 def param_group(name: str) -> str:
@@ -89,12 +96,30 @@ def materialize_batch(batch, device) -> dict:
     return out
 
 
-def loss_fn(model, batch, use_focal: bool, deterministic: bool = False, generator=None):
+def _fused_forward(model, rgb, graph_points, pairs, valid, generator=None, remat=False,
+                   deterministic=False):
+    """SAMRoad.forward (normalise, encoder, MapDecoder, point sampling,
+    TopoNet with dropout from `generator`) with the encoder routed through
+    the differentiable fused forward (models/fast_encoder.py, the K6
+    wrappers); remat checkpoints each encoder block. The same math as the
+    eager model, held to it by the tests."""
+    encoder = partial(encoder_forward_fused, differentiable=True, remat=remat)
+    return model(rgb, graph_points, pairs, valid, deterministic=deterministic,
+                 generator=generator, encoder=encoder)
+
+
+def loss_fn(model, batch, use_focal: bool, deterministic: bool = False, generator=None,
+            fused: bool = False, remat: bool = False):
     """Mask loss (BCE or focal) + masked topology BCE on a materialized
-    batch. Returns (loss, {"mask_loss", "topo_loss", "loss"}), fp32."""
-    mask_logits, _, topo_logits, _ = model(batch["rgb"], batch["graph_points"],
-                                           batch["pairs"], batch["valid"],
-                                           deterministic=deterministic, generator=generator)
+    batch, through the eager model or, with `fused`, _fused_forward.
+    Returns (loss, {"mask_loss", "topo_loss", "loss"}), fp32."""
+    args = (batch["rgb"], batch["graph_points"], batch["pairs"], batch["valid"])
+    if fused:
+        mask_logits, _, topo_logits, _ = _fused_forward(
+            model, *args, generator, remat=remat, deterministic=deterministic)
+    else:
+        mask_logits, _, topo_logits, _ = model(*args, deterministic=deterministic,
+                                               generator=generator)
     gt = torch.stack([batch["keypoint_mask"], batch["road_mask"]], dim=3)
     mask_loss = (sigmoid_focal_loss if use_focal else bce_with_logits)(mask_logits, gt)
     topo_loss = masked_topo_loss(topo_logits, batch["connected"], batch["valid"])
@@ -103,13 +128,20 @@ def loss_fn(model, batch, use_focal: bool, deterministic: bool = False, generato
 
 
 def make_train_step(config, model, optimizer, steps_per_epoch: int):
-    """train_step(batch, generator) -> aux: forward with dropout, loss,
-    gradients, grad_norm over all of them, GRAD_CLIP_NORM scaling (off at
-    0), and the Adam update. A step whose loss or grad_norm is not finite
+    """train_step(batch, generator) -> aux: forward with dropout (through
+    _fused_forward with FUSED_ENCODER_TRAIN), loss, gradients, grad_norm
+    over all of them, GRAD_CLIP_NORM scaling (off at 0), and the Adam
+    update. A step whose loss or grad_norm is not finite
     changes neither the parameters nor Adam's state (aux["skipped"] = 1);
     checking costs one host sync per step."""
-    if config.FUSED_ENCODER_TRAIN:
-        raise NotImplementedError("FUSED_ENCODER_TRAIN (the K6 path) is not ported yet")
+    fused = bool(config.FUSED_ENCODER_TRAIN)
+    if fused and config.USE_SAM_DECODER:
+        raise ValueError("FUSED_ENCODER_TRAIN requires the naive map decoder "
+                         "(USE_SAM_DECODER must be off)")
+    if fused and config.ENCODER_LORA:
+        raise ValueError("FUSED_ENCODER_TRAIN does not support ENCODER_LORA (the fused "
+                         "forward consumes the plain SAM param tree)")
+    remat = bool(config.REMAT_ENCODER)
     use_focal = bool(config.FOCAL_LOSS)
     clip_norm = float(config.GRAD_CLIP_NORM or 0.0)
     boundary = 9 * int(steps_per_epoch)
@@ -119,7 +151,7 @@ def make_train_step(config, model, optimizer, steps_per_epoch: int):
     def train_step(batch, generator) -> dict:
         model.zero_grad(set_to_none=True)
         loss, aux = loss_fn(model, materialize_batch(batch, device), use_focal,
-                            deterministic=False, generator=generator)
+                            deterministic=False, generator=generator, fused=fused, remat=remat)
         loss.backward()
         grads = [p.grad for p in params if p.grad is not None]
         grad_norm = torch.nn.utils.get_total_norm(grads)
@@ -220,45 +252,74 @@ def run_validation(config, model, loader) -> dict:
 
 
 class Trainer:
-    """Epoch loop and checkpoints for one model on one device. Dropout
-    draws from a torch.Generator on that device seeded with 0."""
+    """Epoch loop, validation, checkpoints and logging for one model on one
+    device. Dropout draws from a torch.Generator on that device seeded with
+    0. `logger` (utils/logging.py::MetricsLogger or None) receives the
+    train_* aux of every logged step and the paths of the validation
+    panels. `history` holds the aux of every step taken (the JAX trainer
+    keeps only the logged ones)."""
 
     def __init__(self, config, model, output_dir: str, steps_per_epoch: int,
-                 device="cuda", log_every: int = 50):
+                 device="cuda", log_every: int = 50, logger=None):
         self.config = config
         self.output_dir = output_dir
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.log_every = log_every
+        self.logger = logger
         self.optimizer = build_optimizer(config, self.model)
         self._train_step = make_train_step(config, self.model, self.optimizer, steps_per_epoch)
         self._eval_step = make_eval_step(config, self.model)
         self.generator = torch.Generator(device=self.device).manual_seed(0)
         self.step = 0  # train steps taken, skipped ones included
+        self.history: list = []
 
     def train_epoch(self, loader, epoch: int) -> list:
         """One pass over `loader`; returns the aux of every log_every-th
-        step, each with "seconds": host time since the previous step
-        returned (the first: since the loop began). Every step ends in a
-        host sync, so from the second step on this is the step's wall
+        step. Each aux has "seconds", the host time since the previous step
+        returned (the first: since the loop began), and "data_seconds", the
+        part of it spent waiting for the loader's batch. Every step ends in
+        a host sync, so from the second step on "seconds" is the step's wall
         time."""
         logs = []
         t_prev = time.perf_counter()
         for i, batch in enumerate(loader):
+            t_batch = time.perf_counter()
             aux = self._train_step(batch, self.generator)
             now = time.perf_counter()
-            aux["seconds"], t_prev = now - t_prev, now
+            aux.update(seconds=now - t_prev, data_seconds=t_batch - t_prev, epoch=epoch, batch=i)
+            t_prev = now
             self.step += 1
+            self.history.append(aux)
             if i % self.log_every == 0:
-                aux.update(epoch=epoch, batch=i)
                 logs.append(aux)
-                print(f"epoch {epoch} step {i} loss {aux['loss']:.4f} mask "
+                if self.logger is not None:
+                    self.logger.log({f"train_{k}": v for k, v in aux.items()}, step=self.step)
+                print(f"epoch {epoch} step {i}/{len(loader)} loss {aux['loss']:.4f} mask "
                       f"{aux['mask_loss']:.4f} topo {aux['topo_loss']:.4f} grad_norm "
                       f"{aux['grad_norm']:.4f} skipped {aux['skipped']:.0f}", flush=True)
         return logs
 
-    def validate(self, loader) -> dict:
-        return _evaluate(self._eval_step, loader)
+    def validate(self, loader, epoch: int | None = None, viz_count: int = 0) -> dict:
+        """Streaming validation metrics over `loader`; with viz_count > 0
+        also writes pred-vs-GT mask panels of the first batch into
+        <output_dir>/val_viz."""
+        total = None
+        for n, batch in enumerate(loader):
+            total = _accumulate_eval(total, self._eval_step(batch))
+            if n == 0 and viz_count > 0:
+                self._save_val_viz(batch, epoch or 0, viz_count)
+        return {} if total is None else _finish_eval_metrics(total)
+
+    @torch.no_grad()
+    def _save_val_viz(self, batch, epoch: int, count: int) -> list:
+        rgb = torch.as_tensor(batch["rgb"]).to(self.device).float()
+        scores, _ = self.model.infer_masks_and_features(rgb)
+        paths = save_val_visualizations(os.path.join(self.output_dir, "val_viz"), epoch, batch,
+                                        scores.cpu().numpy(), count=count)
+        if self.logger is not None:
+            self.logger.log_images("val_masks", paths, step=self.step)
+        return paths
 
     def save_checkpoint(self, epoch: int) -> str:
         """The full train state (weights, Adam's moments and count, step)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, in bf16 at
 the bench shapes (ViT-B at 512 px: C 768, 12 heads, 32x32 token grid,
-window 14), on an NVIDIA GPU.
+window 14), and the K6 wrappers' forward and gradients at the training
+shapes (the same at batch 16), on an NVIDIA GPU.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
 where torch sees no GPU. This file imports neither jax nor the JAX package,
@@ -110,3 +111,54 @@ def test_cuda_fused_attention_forward_and_backward(cuda, B, side):
     for a, b in [(got, ref)] + [(x.grad, y.grad) for x, y in zip(leaves, refs)]:
         assert torch.isfinite(a.float()).all()
         assert ((a.float() - b).abs() / (1 + b.abs())).max().item() <= 2e-2
+
+
+def _k6_case(name, dev):
+    """(K6 wrapper, plain version, bf16 inputs) at the training shapes
+    (ViT-B 512 px, batch 16): ln_dense_d x [16384, 768], w [2304, 768];
+    proj_ln_mlp_residual_d x, attn_out [16384, 768]; the window grid
+    [16, 42, 42, 2304] with bias rows [16, 3, 3, 12, 196, 14]; global q, k,
+    v [16, 12, 1024, 64] with bias rows [16, 12, 1024, 32]."""
+    win, heads = 14, 12
+    plain_name = {"ln_dense_d": "ln_dense", "ln_dense_bias_d": "ln_dense_bias"}.get(
+        name, name[:-2])
+    _, plain, args = _bench_case(plain_name, 16, dev)
+    wrapper = {
+        "ln_dense_d": lambda x, s, b, w, _: fused_ln.ln_dense_d(x, s, b, w),
+        "ln_dense_bias_d": fused_ln.ln_dense_bias_d,
+        "proj_ln_mlp_residual_d": fused_ln.proj_ln_mlp_residual_d,
+        "window_attention_rows_grid_d":
+            lambda *a: fused_block.window_attention_rows_grid_d(*a, win, heads),
+        "attention_relpos_rows_d": lambda *a: attention.attention_relpos_rows_d(*a, (32, 32)),
+    }[name]
+    return wrapper, plain, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ln_dense_d", "ln_dense_bias_d", "proj_ln_mlp_residual_d",
+                                  "window_attention_rows_grid_d", "attention_relpos_rows_d"])
+def test_cuda_k6_forward_and_gradients_at_training_shapes(cuda, name):
+    """The K6 wrapper (K1-K4 forward, recompute backward) against the plain
+    version under autograd in fp32 on the same bf16 inputs, for a cotangent
+    N(0, 1) / 128 (a loss's mean over the batch makes cotangents small):
+    every output and input gradient within 2e-2 (1 + |ref|) elementwise and
+    within 2e-2 of the tensor's largest |ref|; one counted launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrapper, plain, args = _k6_case(name, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    before = _build.launches[name]
+    leaves = [None if a is None else a.clone().requires_grad_() for a in args]
+    got = wrapper(*leaves)
+    g = (torch.randn(got.shape, generator=gen, device=cuda) / 128).to(torch.bfloat16)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    refs = [None if a is None else a.float().requires_grad_() for a in args]
+    ref = plain(*refs)
+    ref.backward(g.float())
+    pairs = [(got, ref)] + [(a.grad, b.grad) for a, b in zip(leaves, refs) if a is not None]
+    for a, b in pairs:
+        err = (a.float() - b).abs()
+        assert torch.isfinite(a.float()).all()
+        assert (err / (1 + b.abs())).max().item() <= 2e-2
+        assert err.max().item() <= 2e-2 * b.abs().max().item()

@@ -141,11 +141,15 @@ def test_flash_encoder_matches_flax_always(count_k5):
     assert [tuple(s) for s in count_k5] == [(2, 2, 196, 60), (2, 2, 144, 56)]
 
 
-@pytest.mark.parametrize("focal", [False, True])
-def test_loss_and_gradients_match_jax(params, count_k5, focal):
+@pytest.mark.parametrize("focal,fused", [pytest.param(False, False, id="False"),
+                                         pytest.param(True, False, id="True"),
+                                         pytest.param(False, True, id="fused")])
+def test_loss_and_gradients_match_jax(params, count_k5, focal, fused):
     """SAMRoad.forward + the losses, deterministic, against
     jax.value_and_grad of the same composition; every gradient mapped to
-    torch layout through from_flax_params."""
+    torch layout through from_flax_params. `fused`: the port's
+    FUSED_ENCODER_TRAIN forward (the K6 wrappers, no K5) against the same
+    flax gradients."""
     over = dict(TRAIN, FOCAL_LOSS=focal)
     jspec = dataclasses.replace(ModelSpec.from_config(jload_config(overrides=over)),
                                 flash_attention="always")
@@ -163,10 +167,10 @@ def test_loss_and_gradients_match_jax(params, count_k5, focal):
     want_loss, want_grads = jax.jit(jax.value_and_grad(jloss))(params)
     model = _model(over, params)
     loss, aux = harness.loss_fn(model, harness.materialize_batch(batch, "cpu"), focal,
-                                deterministic=True)
+                                deterministic=True, fused=fused)
     loss.backward()
     _close(loss.item(), want_loss)
-    assert len(count_k5) == 2  # both encoder blocks through K5
+    assert len(count_k5) == (0 if fused else 2)  # eager: both encoder blocks through K5
     want = from_flax_params(_np_tree(want_grads))
     grads = dict(model.named_parameters())
     assert set(want) == set(grads)
