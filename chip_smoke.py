@@ -4,9 +4,15 @@ shapes, checks the fused encoder against the eager one, drives the engine
 over the bench workload (a 2048 px region, ViT-B at 512 px, batch 32, bf16,
 random weights from a seed), checks and times K5 (forward and gradients),
 takes training steps at ViT-B 512 px, batch 16, bf16, runs a region
-through the eager encoder (FUSED_ENCODER off), and drives the training CLI
+through the eager encoder (FUSED_ENCODER off), drives the training CLI
 over a generated Cityscale-format dataset with FUSED_ENCODER_TRAIN (K6:
-K1-K4 under autograd), showing that each path ran through its kernels.
+K1-K4 under autograd), then checks K7, K8 and K10 (the PAD_FREE / WIN_*
+modes) bit-equal to K1, K4 and K2 and drives the inference CLI over two
+generated 2048 px tiles from a SAM-format checkpoint in each mode and the
+calibration CLI, showing that each path ran through its kernels. Every
+kernel's time sits beside its bound (bytes or operations at the card's
+peak rates) and, where one PyTorch call computes the same function, that
+call's time.
 
     python3 chip_smoke.py
 
@@ -77,6 +83,35 @@ K6_META = {  # K6 wrapper -> (the kernel its forward launches, its CUDA source, 
                                 "sam_road_tpu_torch/csrc/relpos_attention.cu",
                                 "sam_road_tpu/ops/attention.py:242"),
 }
+PEAK_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA's data sheet)
+PEAK_BYTES = 3.35e12  # HBM3 bytes/s
+K10_META = {  # phase 10 kernel -> (CUDA source, the TPU kernel it replaces)
+    "ln_dense_padded": ("sam_road_tpu_torch/csrc/gemm.cu", "sam_road_tpu/ops/fused_ln.py:126"),
+    "proj_ln_mlp_residual_grid": ("sam_road_tpu_torch/csrc/gemm.cu",
+                                  "sam_road_tpu/ops/fused_ln.py:258"),
+    "window_attention_rows_grid_rolled": ("sam_road_tpu_torch/csrc/window_attention.cu",
+                                          "sam_road_tpu/ops/fused_block.py:256"),
+    "window_attention_rows_grid_gbatch": ("sam_road_tpu_torch/csrc/window_attention.cu",
+                                          "sam_road_tpu/ops/fused_block.py:281"),
+}
+# phase 10: the inference CLI at the bench geometry in each encoder mode,
+# with its launches per batch of 32 patches
+INFER_TILES = 2
+INFER_MODES = {
+    "default": ({}, {"ln_dense": 12, "window_attention_rows_grid": 8,
+                     "attention_relpos_rows": 4, "proj_ln_mlp_residual": 12}),
+    "pad_free": ({"PAD_FREE": True}, {
+        "ln_dense": 4, "ln_dense_padded": 8, "proj_ln_mlp_residual": 4,
+        "proj_ln_mlp_residual_grid": 8, "window_attention_rows_grid": 8,
+        "attention_relpos_rows": 4}),
+    "pad_free_g4": ({"PAD_FREE": True, "WIN_GROUP_BATCH": 4}, {
+        "ln_dense": 4, "ln_dense_padded": 8, "proj_ln_mlp_residual": 4,
+        "proj_ln_mlp_residual_grid": 8, "window_attention_rows_grid_gbatch": 8,
+        "attention_relpos_rows": 4}),
+    "rolled": ({"WIN_ROLLED_ROWS": True}, {
+        "ln_dense": 12, "window_attention_rows_grid_rolled": 8, "attention_relpos_rows": 4,
+        "proj_ln_mlp_residual": 12}),
+}
 K6_PER_FORWARD = {"ln_dense_d": 8, "ln_dense_bias_d": 4, "proj_ln_mlp_residual_d": 12,
                   "window_attention_rows_grid_d": 8, "attention_relpos_rows_d": 4,
                   "ln_dense": 12, "window_attention_rows_grid": 8, "attention_relpos_rows": 4,
@@ -110,6 +145,91 @@ def cuda_ms(fn, reps=10, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flops: float, moved: float) -> dict:
+    """The least time the card could take: the larger of the operations at
+    the bf16 tensor-core peak and the bytes (each input read once, each
+    output written once) at the HBM peak."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
+                else "bytes", flops=flops, bytes=moved)
+
+
+def kernel_flops(name: str, args) -> float:
+    """Operations of one call (multiply-adds count 2) at these inputs."""
+    if name.startswith("ln_dense"):  # x [.., C], w [F, C]
+        x, w = args[0], args[3]
+        return 2.0 * x.numel() * w.shape[0]
+    if name.startswith("proj_ln_mlp_residual"):  # x [.., C], w1 [4C, C]
+        x, w1 = args[0], args[6]
+        C = x.shape[-1]
+        return 2.0 * (x.numel() // C) * (C * C + 2 * C * w1.shape[0])
+    if name.startswith("window_attention_rows_grid"):  # bh [B, nI, nJ, heads, N, win]
+        qkv, bh = args[0], args[2]
+        B, nI, nJ, heads, N, _ = bh.shape
+        return 4.0 * B * nI * nJ * heads * N * N * (qkv.shape[-1] // 3 // heads)
+    if name.startswith("attention_relpos_rows"):  # q [B, heads, N, hd]
+        q = args[0]
+        return 4.0 * q.shape[0] * q.shape[1] * q.shape[2] ** 2 * q.shape[3]
+    if name.startswith("fused_attention"):  # q, k [B, heads, N, D], v [.., hd]
+        q, v = args[0], args[2]
+        return 2.0 * q.shape[0] * q.shape[1] * q.shape[2] ** 2 * (q.shape[3] + v.shape[3])
+    raise KeyError(name)
+
+
+def library_call(name: str, args, win: int = 14, heads: int = 12):
+    """One PyTorch call that computes the same function, on inputs laid out
+    for it beforehand (timed as the yardstick only; the port never calls
+    it), or None: F.scaled_dot_product_attention, with the rel-pos bias
+    materialised as its attn_mask for the window and global kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    if name.startswith("window_attention_rows_grid"):
+        qkv_grid, bias, bh, bw = args
+        B, Hp, Wp, C3 = qkv_grid.shape
+        C, N = C3 // 3, win * win
+        nI, nJ = Hp // win, Wp // win
+        t = (qkv_grid + bias).reshape(B, nI, win, nJ, win, 3, heads, C // heads)
+        t = t.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, B * nI * nJ, heads, N, C // heads)
+        q, k, v = (x.contiguous() for x in t)
+        mask = (bh.reshape(-1, heads, N, win, 1) + bw.reshape(-1, heads, N, 1, win)).reshape(
+            B * nI * nJ, heads, N, N).contiguous()
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    if name.startswith("attention_relpos_rows"):
+        q, k, v, bh, bw = args
+        Bq, hq, N, _ = q.shape
+        side = bh.shape[-1]
+        mask = (bh[..., :, None] + bw[..., None, :]).reshape(Bq, hq, N, side * side).contiguous()
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    if name.startswith("fused_attention"):
+        q, k, v = args
+        return lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
+    return None
+
+
+def timing_row(name: str, args, out, kern, plain, fwd_bwd: bool = False) -> dict:
+    """ms (kernel), plain_ms, library_ms and the bound of one call."""
+    import torch
+
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain)
+    flops = kernel_flops(name, args)
+    moved = nbytes(*args) + nbytes(out)
+    lib = None if fwd_bwd else library_call(name, args)
+    if fwd_bwd:  # + the gradient of every input, the cotangent read once
+        flops, moved = 3 * flops, 2 * moved
+    lib_ms = None
+    if lib is not None:
+        with torch.no_grad():
+            lib_ms = cuda_ms(lib)
+        del lib
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound(flops, moved))
 
 
 def check_kernels(B: int, dev: str = "cuda"):
@@ -170,17 +290,23 @@ def check_kernels(B: int, dev: str = "cuda"):
         max_abs = err.max().item()
         max_rel = (err / (1 + ref.abs())).max().item()
         finite = bool(torch.isfinite(got.float()).all())
-        ms = cuda_ms(lambda: kern(*args))
-        plain_ms = cuda_ms(lambda: plain(*args))
+        del ref, err
+        row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args))
         ok = finite and max_rel <= TOL
         print(f"kernel {name}: shape {tuple(got.shape)} max_abs_err {max_abs:.3e} "
-              f"max_rel_err {max_rel:.3e} (tol {TOL}) kernel_ms {ms:.4f} "
-              f"plain_bf16_ms {plain_ms:.4f} {'ok' if ok else 'FAIL'}", flush=True)
+              f"max_rel_err {max_rel:.3e} (tol {TOL}) {fmt_times(row)} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"kernel {name} disagrees with its plain version")
-        results[name] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
-        del got, ref, err
+        results[name] = dict(max_abs_err=max_abs, **row)
+        del got
     return results
+
+
+def fmt_times(row: dict) -> str:
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    return (f"kernel_ms {row['ms']:.4f} plain_bf16_ms {row['plain_ms']:.4f} library_ms {lib} "
+            f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
 
 
 def flash_cases(dev: str = "cuda"):
@@ -238,17 +364,18 @@ def check_flash_attention(dev: str = "cuda"):
         finite = finite and all(bool(torch.isfinite(t.grad.float()).all()) for t in leaves)
         del leaves, ref_leaves
         with torch.no_grad():
-            ms = cuda_ms(lambda: attention.fused_attention(q, k, v))
-            plain_ms = cuda_ms(lambda: attention.fused_attention_plain(q, k, v))
+            out = torch.empty_like(v)
+            row = timing_row("fused_attention", (q, k, v), out,
+                             lambda: attention.fused_attention(q, k, v),
+                             lambda: attention.fused_attention_plain(q, k, v))
         ok = finite and fwd_rel <= TOL and bwd_rel <= TOL
         print(f"kernel fused_attention {name}: q {tuple(q.shape)} v {tuple(v.shape)} "
               f"max_abs_err {max_abs:.3e} max_rel_err {fwd_rel:.3e} grad_max_rel_err "
-              f"{bwd_rel:.3e} (tol {TOL}) kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"{bwd_rel:.3e} (tol {TOL}) {fmt_times(row)} {'ok' if ok else 'FAIL'}",
+              flush=True)
         if not ok:
             raise SystemExit(f"fused_attention disagrees with its plain version at {name}")
-        shapes[name] = dict(max_abs_err=max_abs, grad_max_rel_err=bwd_rel, ms=ms,
-                            plain_ms=plain_ms)
+        shapes[name] = dict(max_abs_err=max_abs, grad_max_rel_err=bwd_rel, **row)
     return shapes
 
 
@@ -498,20 +625,19 @@ def check_k6(dev: str = "cuda"):
         del got, ref, refs
         for t in leaves:
             t.grad = None
-        ms = cuda_ms(lambda: torch.autograd.grad(wrapper(*leaves), leaves, g))
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(plain(*leaves), leaves, g))
+        row = timing_row(name, args, g, lambda: torch.autograd.grad(wrapper(*leaves), leaves, g),
+                         lambda: torch.autograd.grad(plain(*leaves), leaves, g), fwd_bwd=True)
         grad_rel = max(v[1] for k, v in errs.items() if k != "out")
         grad_scaled = max(v[2] for k, v in errs.items() if k != "out")
         ok = (all(v[3] for v in errs.values()) and errs["out"][1] <= TOL and grad_rel <= TOL
               and grad_scaled <= TOL)
         print(f"kernel {name}: out {tuple(g.shape)} max_abs_err {errs['out'][0]:.3e} "
               f"max_rel_err {errs['out'][1]:.3e} grad_max_rel_err {grad_rel:.3e} "
-              f"grad_max_err/max|ref| {grad_scaled:.3e} (tol {TOL}) fwd+bwd kernel_ms {ms:.4f} "
-              f"plain_bf16_ms {plain_ms:.4f} {'ok' if ok else 'FAIL'}", flush=True)
+              f"grad_max_err/max|ref| {grad_scaled:.3e} (tol {TOL}) fwd+bwd {fmt_times(row)} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"K6 {name} disagrees with its plain version: {errs}")
-        results[name] = dict(max_abs_err=errs["out"][0], grad_max_rel_err=grad_rel,
-                             ms=ms, plain_ms=plain_ms)
+        results[name] = dict(max_abs_err=errs["out"][0], grad_max_rel_err=grad_rel, **row)
         del leaves, args, g
     return results
 
@@ -683,83 +809,359 @@ def time_loader(config, data_root: str, workers: int, batches: int):
     return rate
 
 
-def run_training_cli(seed: int, dev: str = "cuda"):
+def run_training_cli(seed: int, work: str, dev: str = "cuda"):
     """Phase 9c: the training CLI over a generated 1024 px Cityscale-format
-    dataset at ViT-B 512 px, batch 16, bf16: FUSED_ENCODER_TRAIN on (K6) and
-    off (K5), each also with REMAT_ENCODER, then the checkpoint restored into
-    a fresh Trainer and the loader timed alone. Returns the launches of the
-    FUSED_ENCODER_TRAIN run."""
+    dataset (under `work`, kept for phase 10) at ViT-B 512 px, batch 16,
+    bf16: FUSED_ENCODER_TRAIN on (K6) and off (K5), each also with
+    REMAT_ENCODER, then the checkpoint restored into a fresh Trainer and the
+    loader timed alone. Returns the launches of the FUSED_ENCODER_TRAIN
+    run."""
     import torch
 
     from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
     from sam_road_tpu_torch.training.harness import Trainer, applied_updates
 
-    work = tempfile.mkdtemp(prefix="samroad_cli_")
-    try:
-        t = time.time()
-        data_root = os.path.join(work, "data")
-        write_cityscale_fixture(data_root, CLI["IMAGE_SIZE"])
-        print(f"wrote the Cityscale-format fixture in {time.time() - t:.1f} s", flush=True)
-        fused = run_cli(data_root, work, "fused", {}, CLI_STEPS, dev)
-        want = {k: n * CLI_STEPS for k, n in K6_PER_FORWARD.items()}
-        want["fused_attention"] = 24  # the eval forward and the panels' forward, 12 each
-        if fused["launches"] != want:
-            raise SystemExit(f"FUSED_ENCODER_TRAIN launches {fused['launches']}, expected {want}")
-        per_forward = {k: v / CLI_STEPS for k, v in fused["launches"].items()
-                       if k != "fused_attention"}
-        print(f"launches per training forward {per_forward}; eval forward K5 "
-              f"{fused['launches']['fused_attention'] / 2:.0f}", flush=True)
+    t = time.time()
+    data_root = os.path.join(work, "data")
+    write_cityscale_fixture(data_root, CLI["IMAGE_SIZE"])
+    print(f"wrote the Cityscale-format fixture in {time.time() - t:.1f} s", flush=True)
+    fused = run_cli(data_root, work, "fused", {}, CLI_STEPS, dev)
+    want = {k: n * CLI_STEPS for k, n in K6_PER_FORWARD.items()}
+    want["fused_attention"] = 24  # the eval forward and the panels' forward, 12 each
+    if fused["launches"] != want:
+        raise SystemExit(f"FUSED_ENCODER_TRAIN launches {fused['launches']}, expected {want}")
+    per_forward = {k: v / CLI_STEPS for k, v in fused["launches"].items()
+                   if k != "fused_attention"}
+    print(f"launches per training forward {per_forward}; eval forward K5 "
+          f"{fused['launches']['fused_attention'] / 2:.0f}", flush=True)
 
-        cfg = fused["config"]
-        fresh = Trainer(cfg, init_random(SAMRoad.from_config(cfg), seed + 1), fused["trainer"].
-                        output_dir, CLI_STEPS, device=dev)
-        if fresh.restore(fused["ckpt"]) != 1 or fresh.step != CLI_STEPS:
-            raise SystemExit("the restored trainer does not continue at epoch 1")
-        saved = fused["trainer"].model.state_dict()
-        same = all(torch.equal(v, saved[k]) for k, v in fresh.model.state_dict().items())
-        if not same or applied_updates(fresh.optimizer) != CLI_STEPS:
-            raise SystemExit("the checkpoint did not restore the trained state")
-        print(f"checkpoint {os.path.basename(fused['ckpt'])} restored into a fresh Trainer: "
-              f"weights equal, Adam count {applied_updates(fresh.optimizer)}", flush=True)
-        launches, fused_peak = fused["launches"], fused["peak"]
-        times = {"on": (fused["step_s"], fused["wait_s"],
-                        clean_step_seconds(fused["trainer"], seed))}
-        del fresh, saved, fused, cfg
+    cfg = fused["config"]
+    fresh = Trainer(cfg, init_random(SAMRoad.from_config(cfg), seed + 1), fused["trainer"].
+                    output_dir, CLI_STEPS, device=dev)
+    if fresh.restore(fused["ckpt"]) != 1 or fresh.step != CLI_STEPS:
+        raise SystemExit("the restored trainer does not continue at epoch 1")
+    saved = fused["trainer"].model.state_dict()
+    same = all(torch.equal(v, saved[k]) for k, v in fresh.model.state_dict().items())
+    if not same or applied_updates(fresh.optimizer) != CLI_STEPS:
+        raise SystemExit("the checkpoint did not restore the trained state")
+    print(f"checkpoint {os.path.basename(fused['ckpt'])} restored into a fresh Trainer: "
+          f"weights equal, Adam count {applied_updates(fresh.optimizer)}", flush=True)
+    launches, fused_peak = fused["launches"], fused["peak"]
+    times = {"on": (fused["step_s"], fused["wait_s"],
+                    clean_step_seconds(fused["trainer"], seed))}
+    del fresh, saved, fused, cfg
 
-        eager = run_cli(data_root, work, "eager", {"FUSED_ENCODER_TRAIN": False}, CLI_STEPS, dev)
-        if eager["launches"] != {"fused_attention": 12 * CLI_STEPS + 24}:
-            raise SystemExit(f"eager training launches {eager['launches']}")
-        eager_peak, loader_cfg = eager["peak"], eager["config"]
-        times["off"] = (eager["step_s"], eager["wait_s"],
-                        clean_step_seconds(eager["trainer"], seed))
-        del eager
-        print("seconds per step after the first, through the CLI's loader (its wait) and "
-              "without a loader: " + " | ".join(
-                  f"FUSED_ENCODER_TRAIN {k} {s:.4f} ({w:.4f}) {c:.4f}"
-                  for k, (s, w, c) in times.items()), flush=True)
+    eager = run_cli(data_root, work, "eager", {"FUSED_ENCODER_TRAIN": False}, CLI_STEPS, dev)
+    if eager["launches"] != {"fused_attention": 12 * CLI_STEPS + 24}:
+        raise SystemExit(f"eager training launches {eager['launches']}")
+    eager_peak, loader_cfg = eager["peak"], eager["config"]
+    times["off"] = (eager["step_s"], eager["wait_s"],
+                    clean_step_seconds(eager["trainer"], seed))
+    del eager
+    print("seconds per step after the first, through the CLI's loader (its wait) and "
+          "without a loader: " + " | ".join(
+              f"FUSED_ENCODER_TRAIN {k} {s:.4f} ({w:.4f}) {c:.4f}"
+              for k, (s, w, c) in times.items()), flush=True)
 
-        peaks = {}
-        for name, fused_on in (("fused_remat", True), ("eager_remat", False)):
-            run = run_cli(data_root, work, name, {"FUSED_ENCODER_TRAIN": fused_on,
-                                                  "REMAT_ENCODER": True}, REMAT_STEPS, dev)
-            key = "ln_dense" if fused_on else "fused_attention"
-            base = 12 * REMAT_STEPS + (0 if fused_on else 24)  # launches without recompute
-            if run["launches"].get(key, 0) <= base:
-                raise SystemExit(f"{name}: no block was recomputed: {run['launches']}")
-            peaks[name] = run["peak"]
-            del run
-        print(f"peak memory allocated, GiB: FUSED_ENCODER_TRAIN remat off "
-              f"{fused_peak / 2 ** 30:.3f} on {peaks['fused_remat'] / 2 ** 30:.3f} | eager "
-              f"remat off {eager_peak / 2 ** 30:.3f} on {peaks['eager_remat'] / 2 ** 30:.3f}",
+    peaks = {}
+    for name, fused_on in (("fused_remat", True), ("eager_remat", False)):
+        run = run_cli(data_root, work, name, {"FUSED_ENCODER_TRAIN": fused_on,
+                                              "REMAT_ENCODER": True}, REMAT_STEPS, dev)
+        key = "ln_dense" if fused_on else "fused_attention"
+        base = 12 * REMAT_STEPS + (0 if fused_on else 24)  # launches without recompute
+        if run["launches"].get(key, 0) <= base:
+            raise SystemExit(f"{name}: no block was recomputed: {run['launches']}")
+        peaks[name] = run["peak"]
+        del run
+    print(f"peak memory allocated, GiB: FUSED_ENCODER_TRAIN remat off "
+          f"{fused_peak / 2 ** 30:.3f} on {peaks['fused_remat'] / 2 ** 30:.3f} | eager "
+          f"remat off {eager_peak / 2 ** 30:.3f} on {peaks['eager_remat'] / 2 ** 30:.3f}",
+          flush=True)
+    if not (peaks["fused_remat"] < fused_peak and peaks["eager_remat"] < eager_peak):
+        raise SystemExit("REMAT_ENCODER did not lower peak memory")
+
+    time_loader(loader_cfg, data_root, 4, 4)
+    time_loader(loader_cfg, data_root, 1, 2)
+    return launches
+
+
+def check_grid_kernels(B: int, dev: str = "cuda"):
+    """Phase 10a: K7, K8 and K10 at the bench shapes (B images of a 32x32
+    grid padded to 42x42, C 768, 12 heads, window 14): K7 bit-equal to K1
+    followed by F.pad (exact zeros in the pads), K8 bit-equal to K4 on the
+    cropped attention output, K10 (group_batch 4, rolled_rows) bit-equal to
+    K2, each also within TOL of its plain version in fp32; times beside the
+    default path's way to the same tensor (K1 + F.pad, crop + K4, K2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sam_road_tpu_torch.ops import fused_block, fused_ln
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    C, heads, grid, win, gp = 768, 12, 32, 14, 42
+    pad = gp - grid
+    nw = gp // win
+    x = rn(B, grid, grid, C)
+    ln = (x, 1 + rn(C, scale=0.1), rn(C, scale=0.1), rn(3 * C, C, scale=C ** -0.5))
+    tail_w = (rn(C, C, scale=C ** -0.5), rn(C, scale=0.1), 1 + rn(C, scale=0.1), rn(C, scale=0.1),
+              rn(4 * C, C, scale=C ** -0.5), rn(4 * C, scale=0.1),
+              rn(C, 4 * C, scale=(4 * C) ** -0.5), rn(C, scale=0.1))
+    a_pad = rn(B, gp, gp, C)  # pads not zero: K8 must read only the real tokens
+    qkv_grid = torch.zeros((B, gp, gp, 3 * C), dtype=bf, device=dev)
+    qkv_grid[:, :grid, :grid] = rn(B, grid, grid, 3 * C)
+    rows = (B, nw, nw, heads, win * win, win)
+    win_args = (qkv_grid, rn(3 * C, scale=0.5), rn(*rows), rn(*rows))
+
+    def k1_pad():
+        flat = fused_ln.ln_dense(x.reshape(-1, C), *ln[1:]).reshape(B, grid, grid, 3 * C)
+        return F.pad(flat, (0, 0, 0, pad, 0, pad))
+
+    def crop_k4():
+        a = a_pad[:, :grid, :grid].reshape(-1, C).contiguous()
+        return fused_ln.proj_ln_mlp_residual(x.reshape(-1, C), a, *tail_w).reshape(x.shape)
+
+    def k2():
+        return fused_block.window_attention_rows_grid(*win_args, win, heads)
+
+    cases = {
+        "ln_dense_padded": (lambda *t: fused_ln.ln_dense_padded(*t, (pad, pad)),
+                            lambda *t: fused_ln.ln_dense_padded_plain(*t, (pad, pad)), ln, k1_pad),
+        "proj_ln_mlp_residual_grid": (fused_ln.proj_ln_mlp_residual_grid,
+                                      fused_ln.proj_ln_mlp_residual_grid_plain,
+                                      (x, a_pad) + tail_w, crop_k4),
+        "window_attention_rows_grid_rolled": (
+            lambda *t: fused_block.window_attention_rows_grid(*t, win, heads, rolled_rows=True),
+            lambda *t: fused_block.window_attention_rows_grid_plain(*t, win, heads),
+            win_args, k2),
+        "window_attention_rows_grid_gbatch": (
+            lambda *t: fused_block.window_attention_rows_grid(*t, win, heads, group_batch=4),
+            lambda *t: fused_block.window_attention_rows_grid_plain(*t, win, heads),
+            win_args, k2),
+    }
+    results = {}
+    for name, (kern, plain, args, default_way) in cases.items():
+        got = kern(*args)
+        want = default_way()
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        ref = plain(*[t.float() for t in args])
+        err = (got.float() - ref).abs()
+        max_abs, max_rel = err.max().item(), (err / (1 + ref.abs())).max().item()
+        del ref, err, want
+        row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args))
+        default_ms = cuda_ms(default_way)
+        ok = same and max_rel <= TOL and bool(torch.isfinite(got.float()).all())
+        print(f"kernel {name}: shape {tuple(got.shape)} bit-equal to the default path "
+              f"{same} max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} (tol {TOL}) "
+              f"{fmt_times(row)} default_path_ms {default_ms:.4f} {'ok' if ok else 'FAIL'}",
               flush=True)
-        if not (peaks["fused_remat"] < fused_peak and peaks["eager_remat"] < eager_peak):
-            raise SystemExit("REMAT_ENCODER did not lower peak memory")
+        if not ok:
+            raise SystemExit(f"kernel {name} disagrees with the default path or its plain version")
+        results[name] = dict(max_abs_err=max_abs, default_path_ms=default_ms, **row)
+        del got
+    return results
 
-        time_loader(loader_cfg, data_root, 4, 4)
-        time_loader(loader_cfg, data_root, 1, 2)
-        return launches
+
+ENCODER_MODES = {"default": {}, "PAD_FREE": {"PAD_FREE": True},
+                 "PAD_FREE+WIN_GROUP_BATCH=4": {"PAD_FREE": True, "WIN_GROUP_BATCH": 4},
+                 "WIN_ROLLED_ROWS": {"WIN_ROLLED_ROWS": True}}
+
+
+def set_encoder_switches(switches: dict) -> None:
+    """models/fast_encoder.py's module switches: the defaults, then these."""
+    from sam_road_tpu_torch.models import fast_encoder as fe
+
+    fe.PAD_FREE, fe.WIN_GROUP_BATCH, fe.WIN_ROLLED_ROWS = False, 1, False
+    for key, value in switches.items():
+        setattr(fe, key, value)
+
+
+def check_encoder_modes(seed: int, dev: str = "cuda", rounds: int = 4):
+    """Phase 10b: the fused encoder at the bench geometry (32 patches, bf16)
+    in each ENCODER_MODES entry, bit-equal to the default; the ms of a
+    forward in each mode, as `rounds` medians of 5 taken in turns (every
+    other round in reverse order), and their median."""
+    import torch
+
+    from sam_road_tpu_torch.config import load_config
+    from sam_road_tpu_torch.models.fast_encoder import encoder_forward_fused
+    from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
+
+    model = init_random(SAMRoad.from_config(load_config(overrides=BENCH)), seed).to(dev).eval()
+    enc = model.image_encoder
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p = BENCH["PATCH_SIZE"]
+    x = model.normalize(torch.randint(0, 255, (BENCH["INFER_BATCH_SIZE"], p, p, 3),
+                                      generator=gen, device=dev))
+    outs, times = {}, {name: [] for name in ENCODER_MODES}
+    try:
+        for name, switches in ENCODER_MODES.items():
+            set_encoder_switches(switches)
+            outs[name] = encoder_forward_fused(enc, x)
+        for r in range(rounds):
+            for name in list(ENCODER_MODES)[::(-1) ** r]:
+                set_encoder_switches(ENCODER_MODES[name])
+                times[name].append(cuda_ms(lambda: encoder_forward_fused(enc, x), reps=5,
+                                           warmup=1))
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        set_encoder_switches({})
+    same = {name: torch.equal(out, outs["default"]) for name, out in outs.items()}
+    print("fused encoder forward, 32 patches, bf16, ms (median of the rounds; each round): "
+          + " | ".join(f"{name} bit-equal {same[name]} {statistics.median(t):.3f} ("
+                       + ", ".join(f"{v:.3f}" for v in t) + ")" for name, t in times.items()),
+          flush=True)
+    if not all(same.values()):
+        raise SystemExit(f"an encoder mode is not bit-equal to the default: {same}")
+    return times
+
+
+def write_sam_checkpoint(path: str, seed: int):
+    """A SAM-format .pth (image_encoder.* keys, fp32) from seeded weights at
+    1024 px geometry: the 64x64 pos embed and 127-row global rel-pos tables
+    that load_and_convert resizes for 512 px."""
+    import torch
+
+    from sam_road_tpu_torch.config import load_config
+    from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
+
+    model = init_random(SAMRoad.from_config(load_config(overrides={**BENCH, "PATCH_SIZE": 1024})),
+                        seed)
+    torch.save({f"image_encoder.{k}": v for k, v in model.image_encoder.state_dict().items()},
+               path)
+
+
+def run_infer_cli(seed: int, work: str, dev: str = "cuda"):
+    """Phase 10c: `python -m sam_road_tpu_torch.cli.infer`, in process, over
+    INFER_TILES generated 2048 px Cityscale-format test tiles, from a
+    SAM-format checkpoint at 1024 px geometry (the pos-embed resize at full
+    width), ViT-B 512 px, batch 32, bf16, thresholds calibrated by quantile
+    as run_engine does, once in each INFER_MODES entry: the exact launches
+    per batch of each run, and masks
+    and graph pickles byte-equal across the runs. Returns the launches of
+    each run."""
+    import torch
+
+    from sam_road_tpu_torch.cli import infer
+    from sam_road_tpu_torch.config import load_config, read_flat_yaml, write_flat_yaml
+    from sam_road_tpu_torch.data.dataset import read_rgb_img
+    from sam_road_tpu_torch.data.partitions import cityscale_data_partition, get_patch_info_one_img
+    from sam_road_tpu_torch.data.png import write_png
+    from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
+    from sam_road_tpu_torch.models.convert import load_weights
+    from sam_road_tpu_torch.ops import _build
+
+    t = time.time()
+    data = os.path.join(work, "infer_data")
+    sat = os.path.join(data, "cityscale", "20cities")
+    os.makedirs(sat, exist_ok=True)
+    _, _, test_ids = cityscale_data_partition()
+    test_ids = test_ids[:INFER_TILES]
+    rng = np.random.default_rng(0)
+    for tile in test_ids:
+        write_png(os.path.join(sat, f"region_{tile}_sat.png"),
+                  rng.integers(0, 255, size=(REGION, REGION, 3), dtype=np.uint8))
+    pth = os.path.join(work, "sam_vit_b_seeded.pth")
+    write_sam_checkpoint(pth, seed)
+    values = read_flat_yaml(FLAGSHIP)
+    values.update(BENCH)
+    cfg = load_config(overrides=values)
+    print(f"wrote {INFER_TILES} tiles and a SAM-format checkpoint in {time.time() - t:.1f} s",
+          flush=True)
+
+    # thresholds by quantile of a first region's masks (see run_engine)
+    model, mismatched = load_weights(pth, cfg)
+    engine = TiledInferenceEngine(cfg, model, dev)
+    engine.config.ITSC_THRESHOLD = engine.config.ROAD_THRESHOLD = 1.0
+    tile0 = read_rgb_img(os.path.join(sat, f"region_{test_ids[0]}_sat.png"))
+    _, _, kp, road = engine.infer_one_img(tile0)
+    values["ITSC_THRESHOLD"] = float(np.quantile(kp / 255.0, 0.99))
+    values["ROAD_THRESHOLD"] = float(np.quantile(road / 255.0, 0.92))
+    cfg_path = os.path.join(work, "infer.yaml")
+    write_flat_yaml(cfg_path, values)
+    print(f"calibrated ITSC_THRESHOLD {values['ITSC_THRESHOLD']} ROAD_THRESHOLD "
+          f"{values['ROAD_THRESHOLD']}; {len(mismatched)} params not in the checkpoint "
+          f"(the decoders)", flush=True)
+    del model, engine
+    gc.collect()  # its blocks stay in torch's cache for the CLI runs
+
+    p, m = BENCH["PATCH_SIZE"], BENCH["SAMPLE_MARGIN"]
+    n_patches = len(get_patch_info_one_img(0, REGION, m, p, BENCH["INFER_PATCHES_PER_EDGE"]))
+    batches = INFER_TILES * -(-n_patches // BENCH["INFER_BATCH_SIZE"])
+    runs, first = {}, None
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI writes ./save/<output_dir>
+    try:
+        for name, (switches, per_batch) in INFER_MODES.items():
+            set_encoder_switches(switches)
+            _build.reset_launches()
+            t = time.time()
+            out = infer.main(["--config", cfg_path, "--checkpoint", pth, "--data_root", data,
+                              "--output_dir", name, "--max_tiles", str(INFER_TILES),
+                              "--device", dev])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall = time.time() - t
+            launches = dict(_build.launches)
+            set_encoder_switches({})
+            files = {}
+            for tile in test_ids:
+                for rel in (f"mask/{tile}_road.png", f"mask/{tile}_itsc.png", f"graph/{tile}.p"):
+                    with open(os.path.join(out, rel), "rb") as f:
+                        files[rel] = f.read()
+                if not os.path.getsize(os.path.join(out, "viz", f"{tile}.png")):
+                    raise SystemExit(f"cli.infer {name}: empty viz for tile {tile}")
+            with open(os.path.join(out, "inference_time.txt")) as f:
+                loop_s = float(f.read().split(" in ")[-1].split(" seconds")[0])
+            graphs = [pickle.loads(files[f"graph/{tile}.p"]) for tile in test_ids]
+            n_nodes = [len(g) for g in graphs]
+            n_edges = [sum(len(v) for v in g.values()) // 2 for g in graphs]
+            want = {k: n * batches for k, n in per_batch.items()}
+            print(f"cli.infer {name}: {INFER_TILES} regions in {loop_s:.3f} s "
+                  f"({loop_s / INFER_TILES:.3f} s per region, the CLI's inference_time.txt; "
+                  f"per-tile phase split on its 'Done for' lines), run with loading {wall:.1f} s; "
+                  f"nodes {n_nodes} edges {n_edges}; launches {launches}", flush=True)
+            if launches != want:
+                raise SystemExit(f"cli.infer {name}: launches {launches}, expected {want}")
+            if not all(n_nodes) or not all(n_edges):
+                raise SystemExit(f"cli.infer {name}: an empty graph")
+            if first is None:
+                first = files
+            elif files != first:
+                raise SystemExit(f"cli.infer {name}: masks or graphs differ from the default run")
+            runs[name] = dict(launches=launches, seconds_per_region=loop_s / INFER_TILES)
+    finally:
+        os.chdir(cwd)
+        set_encoder_switches({})
+    print(f"cli.infer: masks and graph pickles byte-equal across {list(runs)}", flush=True)
+    return runs
+
+
+def run_test_cli(work: str, dev: str = "cuda"):
+    """Phase 10d: `python -m sam_road_tpu_torch.cli.test --dev_run`, in
+    process, over phase 9's generated dataset with its FUSED_ENCODER_TRAIN
+    run's checkpoint (the port's own ckpt_epoch_0.pt); prints the
+    thresholds."""
+    from sam_road_tpu_torch.cli import test
+    from sam_road_tpu_torch.ops import _build
+
+    out_json = os.path.join(work, "thresholds.json")
+    _build.reset_launches()
+    t = time.time()
+    results = test.main(["--config", os.path.join(work, "fused.yaml"), "--checkpoint",
+                         os.path.join(work, "fused", "ckpt_epoch_0.pt"), "--dev_run",
+                         "--data_root", os.path.join(work, "data"), "--output_json", out_json,
+                         "--device", dev])
+    print(f"cli.test: {time.time() - t:.1f} s, launches {dict(_build.launches)}, thresholds "
+          + ", ".join(f"{k} {v['threshold']}" for k, v in results.items()), flush=True)
+    if set(results) != {"keypoint", "road", "topo"} or not os.path.exists(out_json) or not all(
+            np.isfinite(v["threshold"]) for v in results.values()):
+        raise SystemExit(f"cli.test: thresholds missing or not finite: {results}")
+    return results
 
 
 def main():
@@ -802,8 +1204,7 @@ def main():
     flash = check_flash_attention()
     window = flash["window 14x14"]  # 8 of the 12 launches of a forward pass
     results["fused_attention"] = dict(
-        max_abs_err=max(r["max_abs_err"] for r in flash.values()), ms=window["ms"],
-        plain_ms=window["plain_ms"], shapes=flash)
+        window, max_abs_err=max(r["max_abs_err"] for r in flash.values()), shapes=flash)
 
     phase(f"7 training: {TRAIN_STEPS} steps and validation at ViT-B 512 px, batch 16, bf16")
     launches.update(run_training(SEED))
@@ -811,21 +1212,33 @@ def main():
     phase(f"8 engine on a {EAGER_REGION} px region, FUSED_ENCODER off (K5)")
     run_engine(SEED, {**BENCH, "FUSED_ENCODER": False}, EAGER_REGION, {"fused_attention": 12})
 
-    phase("9 training CLI with FUSED_ENCODER_TRAIN (K6) at ViT-B 512 px, batch 16, bf16")
-    k6 = check_k6()
-    check_train_encoder(SEED)
-    k6_launches = run_training_cli(SEED)
+    work = tempfile.mkdtemp(prefix="samroad_cli_")  # phase 9's dataset, kept for phase 10
+    try:
+        phase("9 training CLI with FUSED_ENCODER_TRAIN (K6) at ViT-B 512 px, batch 16, bf16")
+        k6 = check_k6()
+        check_train_encoder(SEED)
+        k6_launches = run_training_cli(SEED, work)
+
+        phase("10 PAD_FREE / WIN_* (K7, K8, K10), the inference and calibration CLIs")
+        grid = check_grid_kernels(32)
+        check_encoder_modes(SEED)
+        infer_runs = run_infer_cli(SEED, work)
+        run_test_cli(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    grid_launches = {**infer_runs["pad_free"]["launches"],
+                     **infer_runs["pad_free_g4"]["launches"], **infer_runs["rolled"]["launches"]}
 
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
-        r = results[name]
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=launches[name], max_abs_err=r["max_abs_err"],
-                            ms=r["ms"], plain_ms=r["plain_ms"],
-                            **({"shapes": r["shapes"]} if "shapes" in r else {})))
+                            launches=launches[name], **results[name]))
     for name, (kernel, src, replaces) in K6_META.items():  # K6: forward and backward
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=k6_launches[name], forward_kernel=kernel, **k6[name]))
+    for name, (src, replaces) in K10_META.items():  # K7, K8, K10
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                            launches=grid_launches[name], **grid[name]))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,12 @@ flags and behaviour, plus --device).
         [--resume CKPT] [--dev_run] [--fast_dev_run] [--data_root DIR]
         [--output_dir DIR] [--seed N] [--steps_per_epoch N] [--device cuda|cpu]
 
-Weights start from models/sam_road.py::init_random(model, --seed). Loading a
-SAM checkpoint (.pth) or the MAE trunk is not ported yet (ROADMAP.md,
-Queue 1, item 10): where the checkpoint file exists this raises, and where
-it does not, it prints "training from random init" as the JAX CLI does.
+Weights start from models/sam_road.py::init_random(model, --seed), and then,
+as in the JAX CLI: without --resume, the SAM checkpoint (--sam_ckpt or
+SAM_CKPT_PATH, where the file exists) goes through models/convert.py::
+load_and_convert (pos-embed resize, name-and-shape overlay), or with NO_SAM
+the MAE trunk at MAE_CKPT_PATH through load_mae_encoder_params; where
+neither file exists it prints "training from random init".
 --device is PyTorch's device; the default, cuda, raises when torch sees no
 GPU and never carries on on the CPU. One process: process_index 0 of 1.
 Returns the Trainer.
@@ -45,6 +47,7 @@ def main(argv=None):
 
     from sam_road_tpu_torch.config import create_output_dir_and_save_config, load_config
     from sam_road_tpu_torch.data.dataset import BatchLoader, SatMapDataset
+    from sam_road_tpu_torch.models.convert import load_and_convert, load_mae_encoder_params
     from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
     from sam_road_tpu_torch.training.harness import Trainer
     from sam_road_tpu_torch.utils.logging import MetricsLogger
@@ -61,13 +64,16 @@ def main(argv=None):
     if args.resume:
         pass  # the full train state is restored once the Trainer exists
     elif not config.NO_SAM and sam_ckpt and os.path.exists(sam_ckpt):
-        raise NotImplementedError(
-            f"loading the SAM checkpoint {sam_ckpt} is not ported yet (ROADMAP.md, Queue 1, "
-            "item 10: checkpoint loading)")
+        model, matched, mismatched = load_and_convert(sam_ckpt, config, model)
+        print("###### Matched params ######")
+        print("\n".join(matched[:20] + [f"... {len(matched)} total"]))
+        print("###### Mismatched params ######")
+        print("\n".join(mismatched))
     elif config.NO_SAM and config.MAE_CKPT_PATH and os.path.exists(config.MAE_CKPT_PATH):
-        raise NotImplementedError(
-            f"loading the MAE checkpoint {config.MAE_CKPT_PATH} is not ported yet (ROADMAP.md, "
-            "Queue 1, item 10: checkpoint loading)")
+        model, matched, mismatched = load_mae_encoder_params(config.MAE_CKPT_PATH, config, model)
+        print("###### Matched params (MAE init) ######")
+        print("\n".join(matched[:20] + [f"... {len(matched)} total"]))
+        print(f"({len(mismatched)} params stay at random init)")
     else:
         print("training from random init (no SAM checkpoint found)")
 

@@ -25,6 +25,20 @@
 // erf), + residual (bf16 or fp32); stored as bf16 or fp32.
 // Requires N % 128 == 0, K % 32 == 0 and 16-byte aligned pointers (the
 // Python wrapper checks); M is arbitrary.
+//
+// Grid addressing (the PAD_FREE path of the windowed blocks): the M rows are
+// the tokens m = (b, y, x) of a [B, H, W] grid, and A (A_GRID) or C (C_GRID)
+// lives on the window-padded [B, Hp, Wp] grid, so row m is read or written
+// at padded row (b * Hp + y) * Wp + x. Only the address changes: the K loop,
+// the accumulation order and the epilogue are those of the flat mode, so
+// real tokens come out bit-equal to it.
+//   K7 ln_dense_padded (replaces sam_road_tpu/ops/fused_ln.py::ln_dense_padded,
+//      _ln_dense_padded_kernel): K1 with C_GRID, then zero_pad_kernel writes
+//      the pad positions (and only those) with zeros. Bound like K1 by the
+//      tensor cores; it saves the F.pad pass over the padded qkv grid.
+//   K8 proj_ln_mlp_residual_grid (replaces fused_ln.py::proj_ln_mlp_residual_grid,
+//      _proj_ln_mlp_grid_kernel): K4 whose first launch reads the attention
+//      output with A_GRID; it saves the crop copy before the tail.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +58,22 @@ constexpr int LDS = BK + 8;           // smem row stride in bf16 (80 bytes)
 
 enum AMode { A_BF16 = 0, A_LN_BF16 = 1, A_LN_F32 = 2 };
 enum ResMode { RES_NONE = 0, RES_BF16 = 1, RES_F32 = 2 };
+
+// Token m = (b, y, x) of a [B, H, W] grid -> its row of the [B, Hp, Wp] grid.
+struct GridMap {
+  int H, W, Hp, Wp;
+  __device__ __forceinline__ int64_t row(int m) const {
+    const int hw = H * W;
+    const int b = m / hw, r = m - b * hw, y = r / W, x = r - y * W;
+    return ((int64_t)b * Hp + y) * Wp + x;
+  }
+};
+
+template <bool GRID>
+__device__ __forceinline__ int64_t map_row(int m, const GridMap& g) {
+  if constexpr (GRID) return g.row(m);
+  else return m;
+}
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
@@ -87,15 +117,16 @@ __device__ __forceinline__ void load_a8(const void* A, int64_t off, float* f) {
 template <int AM> struct ARaw { uint4 v[2]; };
 template <> struct ARaw<A_LN_F32> { float4 v[4]; };
 
-template <int AM>
+template <int AM, bool A_GRID>
 __device__ __forceinline__ void fetch_a(ARaw<AM>& r, const void* A, int m0,
-                                        int k0, int M, int K, int tid) {
+                                        int k0, int M, int K, int tid,
+                                        const GridMap& g) {
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int idx = c * THREADS + tid;
     const int row = idx >> 2, col = (idx & 3) * 8;
     const int gm = m0 + row;
-    const int64_t off = (int64_t)gm * K + k0 + col;
+    const int64_t off = (gm < M ? map_row<A_GRID>(gm, g) : 0) * K + k0 + col;
     if constexpr (AM == A_LN_F32) {
       if (gm < M) {
         const float4* p = reinterpret_cast<const float4*>(
@@ -147,12 +178,13 @@ __device__ __forceinline__ void store_a(const ARaw<AM>& r, bf16 (*As)[LDS],
   }
 }
 
-template <int AM, bool HAS_BIAS, bool GELU, int RES, bool OUT_F32>
+template <int AM, bool HAS_BIAS, bool GELU, int RES, bool OUT_F32, bool A_GRID,
+          bool C_GRID>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const void* __restrict__ A, const bf16* __restrict__ B,
             const bf16* __restrict__ bias, const void* __restrict__ res,
             const bf16* __restrict__ ln_s, const bf16* __restrict__ ln_b,
-            void* __restrict__ C, int M, int N, int K) {
+            void* __restrict__ C, int M, int N, int K, GridMap g) {
   __shared__ __align__(128) bf16 As[BM][LDS];
   __shared__ __align__(128) bf16 Bs[BN][LDS];
   __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
@@ -170,9 +202,10 @@ gemm_kernel(const void* __restrict__ A, const bf16* __restrict__ B,
       float mu = 0.f, rs = 0.f;
       if (gm < M) {
         float sum = 0.f;
+        const int64_t arow = map_row<A_GRID>(gm, g) * K;
         for (int k = lane * 8; k < K; k += 256) {
           float f[8];
-          load_a8<AM>(A, (int64_t)gm * K + k, f);
+          load_a8<AM>(A, arow + k, f);
 #pragma unroll
           for (int i = 0; i < 8; ++i) sum += f[i];
         }
@@ -182,7 +215,7 @@ gemm_kernel(const void* __restrict__ A, const bf16* __restrict__ B,
         float sq = 0.f;
         for (int k = lane * 8; k < K; k += 256) {
           float f[8];
-          load_a8<AM>(A, (int64_t)gm * K + k, f);
+          load_a8<AM>(A, arow + k, f);
 #pragma unroll
           for (int i = 0; i < 8; ++i) sq += (f[i] - mu) * (f[i] - mu);
         }
@@ -213,7 +246,7 @@ gemm_kernel(const void* __restrict__ A, const bf16* __restrict__ B,
       rb[c] = *reinterpret_cast<const uint4*>(B + (int64_t)(n0 + row) * K + k0 + col);
     }
   };
-  fetch_a<AM>(ra, A, m0, 0, M, K, tid);
+  fetch_a<AM, A_GRID>(ra, A, m0, 0, M, K, tid, g);
   fetch_b(0);
 
   const int KT = K / BK;
@@ -227,7 +260,7 @@ gemm_kernel(const void* __restrict__ A, const bf16* __restrict__ B,
     }
     __syncthreads();
     if (kt + 1 < KT) {  // next tile's loads fly while this one computes
-      fetch_a<AM>(ra, A, m0, (kt + 1) * BK, M, K, tid);
+      fetch_a<AM, A_GRID>(ra, A, m0, (kt + 1) * BK, M, K, tid, g);
       fetch_b((kt + 1) * BK);
     }
 #pragma unroll
@@ -273,6 +306,7 @@ gemm_kernel(const void* __restrict__ A, const bf16* __restrict__ B,
           for (int e = 0; e < 8; ++e) v[e] = gelu_erf(v[e]);
         }
         const int64_t off = (int64_t)gm * N + gn;
+        const int64_t c_off = map_row<C_GRID>(gm, g) * N + gn;
         if constexpr (RES == RES_BF16) {
           float rv[8];
           bf16x8_to_float(*reinterpret_cast<const uint4*>(
@@ -286,11 +320,11 @@ gemm_kernel(const void* __restrict__ A, const bf16* __restrict__ B,
           for (int e = 0; e < 8; ++e) v[e] += rv[e];
         }
         if constexpr (OUT_F32) {
-          float4* o = reinterpret_cast<float4*>(reinterpret_cast<float*>(C) + off);
+          float4* o = reinterpret_cast<float4*>(reinterpret_cast<float*>(C) + c_off);
           o[0] = make_float4(v[0], v[1], v[2], v[3]);
           o[1] = make_float4(v[4], v[5], v[6], v[7]);
         } else {
-          *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(C) + off) = float_to_bf16x8(v);
+          *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(C) + c_off) = float_to_bf16x8(v);
         }
       }
       __syncwarp();
@@ -298,15 +332,64 @@ gemm_kernel(const void* __restrict__ A, const bf16* __restrict__ B,
   }
 }
 
-template <int AM, bool HAS_BIAS, bool GELU, int RES, bool OUT_F32>
+template <int AM, bool HAS_BIAS, bool GELU, int RES, bool OUT_F32, bool A_GRID = false,
+          bool C_GRID = false>
 void launch(const void* A, const void* B, const void* bias, const void* res,
             const void* ln_s, const void* ln_b, void* C, int M, int N, int K,
-            cudaStream_t stream) {
+            cudaStream_t stream, GridMap g = GridMap{0, 0, 0, 0}) {
   dim3 grid(N / BN, (M + BM - 1) / BM);
-  gemm_kernel<AM, HAS_BIAS, GELU, RES, OUT_F32><<<grid, THREADS, 0, stream>>>(
+  gemm_kernel<AM, HAS_BIAS, GELU, RES, OUT_F32, A_GRID, C_GRID><<<grid, THREADS, 0, stream>>>(
       A, reinterpret_cast<const bf16*>(B), reinterpret_cast<const bf16*>(bias),
       res, reinterpret_cast<const bf16*>(ln_s), reinterpret_cast<const bf16*>(ln_b),
-      C, M, N, K);
+      C, M, N, K, g);
+}
+
+// Zeros at the pad positions of out [B, Hp, Wp, F] (rows y >= H, columns
+// x >= W), and nowhere else; 16 bytes a thread, grid-stride.
+__global__ void zero_pad_kernel(bf16* __restrict__ out, int B, GridMap g, int F) {
+  const int chunks = F / 8;
+  const int right = g.H * (g.Wp - g.W);          // pad columns of the real rows
+  const int per_img = right + (g.Hp - g.H) * g.Wp;  // then the whole pad rows
+  const int64_t total = (int64_t)B * per_img * chunks;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int c = (int)(i % chunks);
+    const int64_t t = i / chunks;
+    const int b = (int)(t / per_img);
+    int p = (int)(t - (int64_t)b * per_img), y, x;
+    if (p < right) {
+      y = p / (g.Wp - g.W);
+      x = g.W + p % (g.Wp - g.W);
+    } else {
+      p -= right;
+      y = g.H + p / g.Wp;
+      x = p % g.Wp;
+    }
+    *reinterpret_cast<uint4*>(out + (((int64_t)b * g.Hp + y) * g.Wp + x) * F + c * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// K4's three launches; A_GRID reads the attention output `a` on the padded grid.
+template <bool A_GRID>
+int proj_ln_mlp_residual(const void* x, const void* a, const void* wp, const void* bp,
+                         const void* ln_s, const void* ln_b, const void* w1, const void* b1,
+                         const void* w2, const void* b2, void* x1, void* mid, void* out,
+                         int M, int C, int F, cudaStream_t s, GridMap g) {
+  if (C % BN || F % BN || C % BK || F % BK || M <= 0) return (int)cudaErrorInvalidValue;
+  launch<A_BF16, true, false, RES_BF16, true, A_GRID>(a, wp, bp, x, nullptr, nullptr, x1, M, C,
+                                                      C, s, g);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  launch<A_LN_F32, true, true, RES_NONE, false>(x1, w1, b1, nullptr, ln_s, ln_b, mid, M, F, C, s);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  launch<A_BF16, true, false, RES_F32, false>(mid, w2, b2, x1, nullptr, nullptr, out, M, C, F, s);
+  return (int)cudaGetLastError();
+}
+
+bool bad_grid(int B, int H, int W, int Hp, int Wp) {
+  return B <= 0 || H <= 0 || W <= 0 || Hp < H || Wp < W;
 }
 
 }  // namespace
@@ -337,16 +420,44 @@ int samroad_proj_ln_mlp_residual(const void* x, const void* a, const void* wp,
                                  const void* b1, const void* w2, const void* b2,
                                  void* x1, void* mid, void* out, int M, int C,
                                  int F, void* stream) {
+  return proj_ln_mlp_residual<false>(x, a, wp, bp, ln_s, ln_b, w1, b1, w2, b2, x1, mid, out, M,
+                                     C, F, reinterpret_cast<cudaStream_t>(stream),
+                                     GridMap{0, 0, 0, 0});
+}
+
+// K7: out[B, Hp, Wp, N] bf16 = LN(x[B, H, W, K]) . w[N, K]^T on the real
+// tokens (bias-free), zeros at the pad positions.
+int samroad_ln_dense_padded(const void* x, const void* ln_s, const void* ln_b,
+                            const void* w, void* out, int B, int H, int W, int Hp,
+                            int Wp, int N, int K, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (C % BN || F % BN || C % BK || F % BK || M <= 0) return (int)cudaErrorInvalidValue;
-  launch<A_BF16, true, false, RES_BF16, true>(a, wp, bp, x, nullptr, nullptr, x1, M, C, C, s);
+  if (N % BN || K % BK || bad_grid(B, H, W, Hp, Wp)) return (int)cudaErrorInvalidValue;
+  const GridMap g{H, W, Hp, Wp};
+  launch<A_LN_BF16, false, false, RES_NONE, false, false, true>(x, w, nullptr, nullptr, ln_s, ln_b,
+                                                                out, B * H * W, N, K, s, g);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  launch<A_LN_F32, true, true, RES_NONE, false>(x1, w1, b1, nullptr, ln_s, ln_b, mid, M, F, C, s);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  launch<A_BF16, true, false, RES_F32, false>(mid, w2, b2, x1, nullptr, nullptr, out, M, C, F, s);
+  const int64_t pad_chunks = (int64_t)B * (Hp * Wp - H * W) * (N / 8);
+  if (pad_chunks > 0) {
+    const int blocks = (int)((pad_chunks + 255) / 256 < 132 * 16 ? (pad_chunks + 255) / 256
+                                                                 : 132 * 16);
+    zero_pad_kernel<<<blocks, 256, 0, s>>>(reinterpret_cast<bf16*>(out), B, g, N);
+  }
   return (int)cudaGetLastError();
+}
+
+// K8: K4 over x[B, H, W, C] with the attention output a[B, Hp, Wp, C] read
+// on the padded grid; out [B, H, W, C].
+int samroad_proj_ln_mlp_residual_grid(const void* x, const void* a, const void* wp,
+                                      const void* bp, const void* ln_s, const void* ln_b,
+                                      const void* w1, const void* b1, const void* w2,
+                                      const void* b2, void* x1, void* mid, void* out, int B,
+                                      int H, int W, int Hp, int Wp, int C, int F,
+                                      void* stream) {
+  if (bad_grid(B, H, W, Hp, Wp)) return (int)cudaErrorInvalidValue;
+  return proj_ln_mlp_residual<true>(x, a, wp, bp, ln_s, ln_b, w1, b1, w2, b2, x1, mid, out,
+                                    B * H * W, C, F, reinterpret_cast<cudaStream_t>(stream),
+                                    GridMap{H, W, Hp, Wp});
 }
 
 }  // extern "C"

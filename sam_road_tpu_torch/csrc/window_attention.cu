@@ -22,6 +22,19 @@
 // the score strip never leaves shared memory (a full 196 x 196 fp32 score
 // tile would be 154 KB). Products use nvcuda::wmma bf16 fragments with fp32
 // accumulation.
+//
+// K10: the rolled_rows / group_batch granularities of the same function
+// (_window_attn_rows_grid_rolled_kernel, _window_attn_rows_grid_gbatch_kernel)
+// are choices of how blocks map to work, over the same per-window code
+// (attend_window), so their outputs are bit-equal to K2's:
+//   MODE_WINDOW  one block per (image, window, head)             (K2)
+//   MODE_ROLLED  one block per (image, window row, head), looping over the
+//                row's nJ windows
+//   MODE_GBATCH  one block per (image group, window, head), looping over the
+//                group's G images
+// On the TPU they cut the program count of a latency-bound dispatch. Here
+// nothing is shared across the loop's iterations (each window reloads its
+// q/k/v), so they only trade parallelism for fewer, longer blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,27 +72,21 @@ struct Layout {  // dynamic shared memory carve-up, byte offsets
   }
 };
 
-__global__ void __launch_bounds__(THREADS)
-window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_bias,
-                        const bf16* __restrict__ bh, const bf16* __restrict__ bw,
-                        bf16* __restrict__ out, int Hp, int Wp, int C, int heads,
-                        int win, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+enum Mode { MODE_WINDOW = 0, MODE_ROLLED = 1, MODE_GBATCH = 2 };
+
+// Attention of one (image b, window (wi, wj), head) with the whole block.
+__device__ __forceinline__ void attend_window(
+    const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_bias,
+    const bf16* __restrict__ bh, const bf16* __restrict__ bw, bf16* __restrict__ out,
+    unsigned char* smem, const Layout& L, int b, int wi, int wj, int head, int Hp, int Wp,
+    int C, int heads, int win, float scale) {
   const int N = win * win;
-  const Layout L(N);
   bf16 (*Qs)[LDQ] = reinterpret_cast<bf16 (*)[LDQ]>(smem + L.q);
   bf16 (*Ks)[LDQ] = reinterpret_cast<bf16 (*)[LDQ]>(smem + L.k);
   bf16 (*Vs)[LDQ] = reinterpret_cast<bf16 (*)[LDQ]>(smem + L.v);
-
   const int nI = Hp / win, nJ = Wp / win;
-  int idx = blockIdx.x;
-  const int head = idx % heads; idx /= heads;
-  const int wj = idx % nJ; idx /= nJ;
-  const int wi = idx % nI;
-  const int b = idx / nI;
   const int C3 = 3 * C;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
   // q/k/v of this (window, head), bias added to every token (pad tokens
   // included); rows N..Np-1 are zero.
   for (int e = tid; e < L.np * (HD / 8); e += THREADS) {
@@ -191,29 +198,83 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ q
   }
 }
 
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_bias,
+                        const bf16* __restrict__ bh, const bf16* __restrict__ bw,
+                        bf16* __restrict__ out, int Hp, int Wp, int C, int heads,
+                        int win, int G, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L(win * win);
+  const int nI = Hp / win, nJ = Wp / win;
+  int idx = blockIdx.x;
+  const int head = idx % heads; idx /= heads;
+  if constexpr (MODE == MODE_ROLLED) {
+    const int wi = idx % nI, b = idx / nI;
+    for (int wj = 0; wj < nJ; ++wj) {
+      if (wj) __syncthreads();  // the previous window's q/k/v are consumed
+      attend_window(qkv, qkv_bias, bh, bw, out, smem, L, b, wi, wj, head, Hp, Wp, C, heads,
+                    win, scale);
+    }
+  } else {
+    const int wj = idx % nJ; idx /= nJ;
+    const int wi = idx % nI;
+    const int b0 = idx / nI;
+    if constexpr (MODE == MODE_GBATCH) {
+      for (int g = 0; g < G; ++g) {
+        if (g) __syncthreads();
+        attend_window(qkv, qkv_bias, bh, bw, out, smem, L, b0 * G + g, wi, wj, head, Hp, Wp,
+                      C, heads, win, scale);
+      }
+    } else {
+      attend_window(qkv, qkv_bias, bh, bw, out, smem, L, b0, wi, wj, head, Hp, Wp, C, heads,
+                    win, scale);
+    }
+  }
+}
+
+template <int MODE>
+cudaError_t launch_window(const void* qkv, const void* qkv_bias, const void* bh,
+                          const void* bw, void* out, int blocks, int Hp, int Wp, int C,
+                          int heads, int win, int G, cudaStream_t stream) {
+  const Layout L(win * win);
+  cudaError_t e = cudaFuncSetAttribute(window_attention_kernel<MODE>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)L.total);
+  if (e != cudaSuccess) return e;
+  window_attention_kernel<MODE><<<blocks, THREADS, L.total, stream>>>(
+      reinterpret_cast<const bf16*>(qkv), reinterpret_cast<const bf16*>(qkv_bias),
+      reinterpret_cast<const bf16*>(bh), reinterpret_cast<const bf16*>(bw),
+      reinterpret_cast<bf16*>(out), Hp, Wp, C, heads, win, G, 1.0f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // qkv [B, Hp, Wp, 3C] bf16 (bias-free, zero pads), qkv_bias [3C] bf16,
 // bh / bw [B, Hp/win, Wp/win, heads, win*win, win] bf16,
-// out [B, Hp, Wp, C] bf16. head_dim must be 64.
+// out [B, Hp, Wp, C] bf16. head_dim must be 64. mode: MODE_WINDOW (K2),
+// MODE_ROLLED or MODE_GBATCH (K10; G images a block, G must divide B).
 int samroad_window_attention(const void* qkv, const void* qkv_bias, const void* bh,
                              const void* bw, void* out, int B, int Hp, int Wp,
-                             int C, int heads, int win, void* stream) {
-  if (C != heads * HD || Hp % win || Wp % win || win <= 0 || win * win > 256)
+                             int C, int heads, int win, int mode, int G, void* stream) {
+  if (C != heads * HD || win <= 0 || Hp % win || Wp % win || win * win > 256)
     return (int)cudaErrorInvalidValue;
-  const Layout L(win * win);
-  cudaError_t e = cudaFuncSetAttribute(window_attention_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)L.total);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = B * (Hp / win) * (Wp / win) * heads;
-  window_attention_kernel<<<blocks, THREADS, L.total, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const bf16*>(qkv), reinterpret_cast<const bf16*>(qkv_bias),
-      reinterpret_cast<const bf16*>(bh), reinterpret_cast<const bf16*>(bw),
-      reinterpret_cast<bf16*>(out), Hp, Wp, C, heads, win, 1.0f / sqrtf((float)HD));
-  return (int)cudaGetLastError();
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int nI = Hp / win, nJ = Wp / win;
+  if (mode == MODE_WINDOW)
+    return (int)launch_window<MODE_WINDOW>(qkv, qkv_bias, bh, bw, out, B * nI * nJ * heads, Hp,
+                                           Wp, C, heads, win, 1, s);
+  if (mode == MODE_ROLLED)
+    return (int)launch_window<MODE_ROLLED>(qkv, qkv_bias, bh, bw, out, B * nI * heads, Hp, Wp,
+                                           C, heads, win, 1, s);
+  if (mode == MODE_GBATCH && G > 0 && B % G == 0)
+    return (int)launch_window<MODE_GBATCH>(qkv, qkv_bias, bh, bw, out,
+                                           (B / G) * nI * nJ * heads, Hp, Wp, C, heads, win,
+                                           G, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,10 +1,24 @@
-"""Graph format converters (counterpart of sam_road_tpu/graph/convert.py, the
-two that graph/structure.py and the metrics need): the sat2graph format is
-a dict {(r, c): [(r, c) neighbour, ...]}, as in the GT pickles."""
+"""Graph format converters (counterpart of sam_road_tpu/graph/convert.py:
+all but convert_from_nx, which waits for the metrics): the sat2graph format
+is a dict {(r, c): [(r, c) neighbour, ...]}, as in the GT pickles and the
+inference CLI's graph/{id}.p."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def filter_nodes(node_array, edge_array, keep_node):
+    """Drop the nodes where keep_node is False, renumber the edges and drop
+    those that lost an end. Returns (nodes, edges [E, 2])."""
+    node_array = np.asarray(node_array)
+    edge_array = np.asarray(edge_array).reshape(-1, 2)
+    keep_node = np.asarray(keep_node, dtype=bool)
+    keep_indices = np.where(keep_node)[0]
+    old_to_new = np.full((node_array.shape[0],), -1, dtype=np.int32)
+    old_to_new[keep_indices] = np.arange(keep_indices.shape[0], dtype=np.int32)
+    new_edges = old_to_new[edge_array.flatten()].reshape(-1, 2)
+    return node_array[keep_node, :], new_edges[np.all(new_edges > -1, axis=-1), :]
 
 
 def edge_list_to_adj_table(nodes, edges):
@@ -30,3 +44,15 @@ def convert_from_sat2graph_format(graph: dict):
     for node, idx in node_to_idx.items():
         nodes[idx] = node
     return np.array(nodes), edges
+
+
+def convert_to_sat2graph_format(nodes, edges) -> dict:
+    """Array graph -> sat2graph dict: edges in both directions, node keys
+    rounded to int (row, col), each neighbour list in the iteration order of
+    the node's neighbour set (as the reference's graph_utils.py builds it)."""
+    nodes = np.asarray(nodes)
+    edges = np.asarray(edges).reshape(-1, 2)
+    adj_table = edge_list_to_adj_table(nodes, np.concatenate((edges, edges[:, ::-1]), axis=0))
+    int_nodes = [(round(float(x)), round(float(y))) for x, y in nodes]
+    return {int_nodes[i]: [int_nodes[j] for j in neighbours]
+            for i, neighbours in enumerate(adj_table)}

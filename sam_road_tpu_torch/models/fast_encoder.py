@@ -28,9 +28,20 @@ attention kernel adds the bias to every token, so each pad token equals
 bh = q.Rh, bw = q.Rw are precomputed for all windows and heads with the
 bias's share (bias_q . R) added analytically. Global blocks use K3 at every
 grid size: K3 tiles the keys, so the JAX package's switch to K5 past ~1225
-tokens (the 1024 px config) has no counterpart here. The JAX A/B switches
-keep their defaults: PAD_FREE (K7, K8) and WIN_* (K10) are not ported yet,
-and XLA_TAIL (plain XLA, no kernel) is not ported.
+tokens (the 1024 px config) has no counterpart here.
+
+The JAX package's module switches, read at call time with its semantics,
+change only the windowed blocks of the inference path (differentiable=False;
+the training path and the global blocks ignore them):
+  PAD_FREE        K7 ops.fused_ln.ln_dense_padded writes LN1 + qkv straight
+                  into the window-padded grid (no F.pad pass), and K8
+                  ops.fused_ln.proj_ln_mlp_residual_grid reads the attention
+                  output from it (no crop copy): per forward 4 K1 + 8 K7 and
+                  4 K4 + 8 K8;
+  WIN_GROUP_BATCH K10, G images a block in window attention (G > 1 wins);
+  WIN_ROLLED_ROWS K10, one block per window row.
+Every mode is bit-equal to the default on the card. XLA_TAIL (plain XLA, no
+kernel) is not ported.
 """
 
 from __future__ import annotations
@@ -49,9 +60,17 @@ from sam_road_tpu_torch.ops.fused_ln import (
     ln_dense,
     ln_dense_bias_d,
     ln_dense_d,
+    ln_dense_padded,
     proj_ln_mlp_residual,
     proj_ln_mlp_residual_d,
+    proj_ln_mlp_residual_grid,
 )
+
+# The JAX package's switches (sam_road_tpu/models/fast_encoder.py), with its
+# names and defaults; set them as module attributes.
+PAD_FREE = False
+WIN_GROUP_BATCH = 1
+WIN_ROLLED_ROWS = False
 
 
 def _w(t, dt):
@@ -67,28 +86,36 @@ def _ln_qkv(x2d, blk, dt, with_bias: bool, diff: bool):
     return ln_dense_bias_d(*args, bias) if with_bias else ln_dense_d(*args)
 
 
+def _tail_weights(blk, dt):
+    attn, mlp = blk.attn, blk.mlp
+    return (_w(attn.proj.weight, dt), _w(attn.proj.bias, dt),
+            _w(blk.norm2.weight, dt), _w(blk.norm2.bias, dt),
+            _w(mlp.lin1.weight, dt), _w(mlp.lin1.bias, dt),
+            _w(mlp.lin2.weight, dt), _w(mlp.lin2.bias, dt))
+
+
 def _tail(x, out, blk, dt, diff: bool):
     """K4 (K6 proj_ln_mlp_residual_d when diff) over the block's proj /
     norm2 / MLP weights; x, out [B, H, W, C]."""
     B, H, W, C = x.shape
-    attn, mlp = blk.attn, blk.mlp
     tail = proj_ln_mlp_residual_d if diff else proj_ln_mlp_residual
-    return tail(
-        x.reshape(B * H * W, C), out.reshape(B * H * W, C).contiguous(),
-        _w(attn.proj.weight, dt), _w(attn.proj.bias, dt),
-        _w(blk.norm2.weight, dt), _w(blk.norm2.bias, dt),
-        _w(mlp.lin1.weight, dt), _w(mlp.lin1.bias, dt),
-        _w(mlp.lin2.weight, dt), _w(mlp.lin2.bias, dt),
-    ).reshape(B, H, W, C)
+    return tail(x.reshape(B * H * W, C), out.reshape(B * H * W, C).contiguous(),
+                *_tail_weights(blk, dt)).reshape(B, H, W, C)
 
 
 def _windowed_block(x, blk, num_heads: int, ws: int, diff: bool = False):
     B, H, W, C = x.shape
     dt = x.dtype
     attn = blk.attn
-    qkv_nb = _ln_qkv(x.reshape(B * H * W, C), blk, dt, False, diff)
+    pad_free = PAD_FREE and not diff
     pad_h, pad_w = (ws - H % ws) % ws, (ws - W % ws) % ws
-    qkv_p = F.pad(qkv_nb.reshape(B, H, W, 3 * C), (0, 0, 0, pad_w, 0, pad_h))
+    if pad_free:
+        x = x.contiguous()
+        qkv_p = ln_dense_padded(x, _w(blk.norm1.weight, dt), _w(blk.norm1.bias, dt),
+                                _w(attn.qkv.weight, dt), (pad_h, pad_w))
+    else:
+        qkv_nb = _ln_qkv(x.reshape(B * H * W, C), blk, dt, False, diff)
+        qkv_p = F.pad(qkv_nb.reshape(B, H, W, 3 * C), (0, 0, 0, pad_w, 0, pad_h))
     nI, nJ = (H + pad_h) // ws, (W + pad_w) // ws
     hd = C // num_heads
     Rh = rel_pos_table(ws, attn.rel_pos_h).to(dt)  # (ws, ws, hd)
@@ -102,8 +129,15 @@ def _windowed_block(x, blk, num_heads: int, ws: int, diff: bool = False):
     N = ws * ws
     bh = bh.reshape(B, nI, nJ, num_heads, N, ws).contiguous()
     bw = bw.reshape(B, nI, nJ, num_heads, N, ws).contiguous()
-    window_attn = window_attention_rows_grid_d if diff else window_attention_rows_grid
-    out_p = window_attn(qkv_p, _w(attn.qkv.bias, dt), bh, bw, ws, num_heads)
+    if diff:
+        out_p = window_attention_rows_grid_d(qkv_p, _w(attn.qkv.bias, dt), bh, bw, ws,
+                                             num_heads)
+    else:
+        out_p = window_attention_rows_grid(qkv_p, _w(attn.qkv.bias, dt), bh, bw, ws, num_heads,
+                                           rolled_rows=WIN_ROLLED_ROWS,
+                                           group_batch=WIN_GROUP_BATCH)
+    if pad_free:
+        return proj_ln_mlp_residual_grid(x, out_p, *_tail_weights(blk, dt))
     return _tail(x, out_p[:, :H, :W, :], blk, dt, diff)
 
 

@@ -14,6 +14,16 @@ the 196 tokens to 208 rows with -inf pad keys, keeps each 16-query score
 strip in shared memory, normalises after p.v, and writes the output back in
 grid layout, so no window partition or unpartition pass touches HBM.
 
+K10: rolled_rows / group_batch select the granularities of the same JAX
+function (_window_attn_rows_grid_rolled_kernel, _window_attn_rows_grid_
+gbatch_kernel). In CUDA they are choices of how blocks map to work over the
+same per-window device code: one block per (image, window row, head)
+looping over the row's windows, or per (group of G images, window, head)
+looping over the group, so their outputs are bit-equal to K2's. G follows
+the JAX rule (halved until it divides B) and group_batch > 1 wins over
+rolled_rows. Each mode counts its launches under its own name
+(window_attention_rows_grid_rolled, window_attention_rows_grid_gbatch).
+
 K6: window_attention_rows_grid_d is an autograd.Function that replaces the
 JAX custom_vjp wrapper of that name (fused_block.py:444-467): K2 forward,
 the primal inputs saved, and a backward that recomputes the plain version
@@ -55,15 +65,36 @@ def window_attention_rows_grid_plain(qkv_grid, qkv_bias, bh, bw, win: int,
     return out.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
 
 
+MODE_WINDOW, MODE_ROLLED, MODE_GBATCH = 0, 1, 2  # csrc/window_attention.cu's modes
+
+
+def group_size(group_batch: int, B: int) -> int:
+    """The images per block of the group_batch mode: group_batch halved
+    until it divides B (sam_road_tpu/ops/fused_block.py's rule)."""
+    G = int(group_batch)
+    while G > 1 and B % G:
+        G //= 2
+    return max(G, 1)
+
+
 def window_attention_rows_grid(qkv_grid, qkv_bias, bh, bw, win: int,
-                               num_heads: int):
-    """K2. qkv_grid [B, Hp, Wp, 3C] bias-free on the zero-padded grid,
-    qkv_bias [3C], bh/bw [B, Hp/win, Wp/win, heads, win*win, win] bias rows
-    in token order n = i*win + j. Returns [B, Hp, Wp, C]."""
+                               num_heads: int, rolled_rows: bool = False,
+                               group_batch: int = 1):
+    """K2 (K10 with rolled_rows or group_batch > 1). qkv_grid [B, Hp, Wp,
+    3C] bias-free on the zero-padded grid, qkv_bias [3C], bh/bw [B, Hp/win,
+    Wp/win, heads, win*win, win] bias rows in token order n = i*win + j.
+    Returns [B, Hp, Wp, C]; every mode computes the same function."""
     if _build.on_cpu(qkv_grid):
         return window_attention_rows_grid_plain(qkv_grid, qkv_bias, bh, bw,
                                                 win, num_heads)
     B, Hp, Wp, C3 = qkv_grid.shape
+    G = group_size(group_batch, B)
+    if G > 1:
+        mode, name = MODE_GBATCH, "window_attention_rows_grid_gbatch"
+    elif rolled_rows:
+        mode, name = MODE_ROLLED, "window_attention_rows_grid_rolled"
+    else:
+        mode, name = MODE_WINDOW, "window_attention_rows_grid"
     C = C3 // 3
     if Hp % win or Wp % win:
         raise ValueError(f"grid {Hp}x{Wp} is not a multiple of window {win}")
@@ -79,9 +110,9 @@ def window_attention_rows_grid(qkv_grid, qkv_bias, bh, bw, win: int,
     lib = _build.kernels()
     _build.check(lib.samroad_window_attention(
         qkv_grid.data_ptr(), qkv_bias.data_ptr(), bh.data_ptr(), bw.data_ptr(),
-        out.data_ptr(), B, Hp, Wp, C, num_heads, win,
-        _build.stream_of(qkv_grid)), "window_attention_rows_grid")
-    _build.launches["window_attention_rows_grid"] += 1
+        out.data_ptr(), B, Hp, Wp, C, num_heads, win, mode, G,
+        _build.stream_of(qkv_grid)), name)
+    _build.launches[name] += 1
     return out
 
 

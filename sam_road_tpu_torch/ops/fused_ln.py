@@ -1,5 +1,6 @@
 """K1 ln_dense and K4 proj_ln_mlp_residual: the encoder's per-token chains
-(counterparts of sam_road_tpu/ops/fused_ln.py).
+(counterparts of sam_road_tpu/ops/fused_ln.py), and their window-grid modes
+K7 ln_dense_padded and K8 proj_ln_mlp_residual_grid (the PAD_FREE path).
 
 Each public function dispatches on its input's device: a CPU tensor takes
 the plain PyTorch version (`*_plain`), a CUDA tensor launches the
@@ -17,6 +18,17 @@ x1 in fp32 through LN2 and the last residual), mid = GELU(LN2(x1).W1 + b1)
 in bf16 with LN2 as the GEMM's prologue, out = x1 + b2 + mid.W2. GELU uses
 CUDA's exact erff, where the Pallas kernel uses Abramowitz-Stegun
 (|err| <= 1.5e-7).
+
+K7 replaces fused_ln.py::ln_dense_padded and K8 fused_ln.py::
+proj_ln_mlp_residual_grid. Both are modes of the same GEMM template that
+change only where a token's row lives: K7 writes token (b, y, x) at its
+row of the window-padded grid [B, Hp, Wp, F] and a small kernel zeroes the
+pad positions (and no others), so the F.pad pass over the padded qkv
+(about 260 MB of writes at the bench geometry) goes; K8's first launch reads
+the attention output at its padded-grid row, so the crop copy goes. On the
+real tokens each is bit-equal to K1 and K4: the K loop, the accumulation
+order and the epilogues are unchanged. Bound like K1 and K4 by tensor-core
+rate.
 
 K6 (the training path, FUSED_ENCODER_TRAIN): ln_dense_d, ln_dense_bias_d
 and proj_ln_mlp_residual_d are autograd.Functions that replace the JAX
@@ -86,6 +98,39 @@ def ln_dense(x, ln_scale, ln_bias, w, bias=None):
     return out
 
 
+def ln_dense_padded_plain(x, ln_scale, ln_bias, w, pad_hw):
+    """ln_dense_plain (bias-free) over x [B, H, W, C], then zero-padded to
+    [B, H + pad_h, W + pad_w, F]."""
+    B, H, W, C = x.shape
+    out = ln_dense_plain(x.reshape(B * H * W, C), ln_scale, ln_bias, w)
+    return F.pad(out.reshape(B, H, W, -1), (0, 0, 0, pad_hw[1], 0, pad_hw[0]))
+
+
+def ln_dense_padded(x, ln_scale, ln_bias, w, pad_hw):
+    """K7: LayerNorm then bias-free dense, written straight into the
+    window-padded grid: x [B, H, W, C] -> [B, H + pad_h, W + pad_w, F] with
+    exact zeros at the pad positions."""
+    if _build.on_cpu(x):
+        return ln_dense_padded_plain(x, ln_scale, ln_bias, w, pad_hw)
+    B, H, W, C = x.shape
+    Hp, Wp = H + int(pad_hw[0]), W + int(pad_hw[1])
+    Fo = w.shape[0]
+    bf = torch.bfloat16
+    _build.require(x, "x", bf)
+    _build.require(ln_scale, "ln_scale", bf, (C,))
+    _build.require(ln_bias, "ln_bias", bf, (C,))
+    _build.require(w, "w", bf, (Fo, C))
+    if Fo % 128 or C % 32 or Hp < H or Wp < W:
+        raise ValueError(f"ln_dense_padded kernel needs F % 128 == 0, C % 32 == 0 and "
+                         f"non-negative pads, got F={Fo} C={C} pad={tuple(pad_hw)}")
+    out = torch.empty((B, Hp, Wp, Fo), dtype=bf, device=x.device)
+    _build.check(_build.kernels().samroad_ln_dense_padded(
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), out.data_ptr(),
+        B, H, W, Hp, Wp, Fo, C, _build.stream_of(x)), "ln_dense_padded")
+    _build.launches["ln_dense_padded"] += 1
+    return out
+
+
 def proj_ln_mlp_residual_plain(x, attn_out, wp, bp, ln_scale, ln_bias, w1, b1,
                                w2, b2):
     """out = x1 + b2 + GELU(LN2(x1) . w1^T + b1) . w2^T with
@@ -131,6 +176,52 @@ def proj_ln_mlp_residual(x, attn_out, wp, bp, ln_scale, ln_bias, w1, b1, w2,
         w2.data_ptr(), b2.data_ptr(), x1.data_ptr(), mid.data_ptr(),
         out.data_ptr(), M, C, Fh, _build.stream_of(x)), "proj_ln_mlp_residual")
     _build.launches["proj_ln_mlp_residual"] += 1
+    return out
+
+
+def proj_ln_mlp_residual_grid_plain(x, attn_out_padded, wp, bp, ln_scale, ln_bias, w1, b1,
+                                    w2, b2):
+    """proj_ln_mlp_residual_plain over x [B, H, W, C] with the attention
+    output cropped from its padded grid [B, Hp, Wp, C]."""
+    B, H, W, C = x.shape
+    a = attn_out_padded[:, :H, :W, :].reshape(B * H * W, C)
+    return proj_ln_mlp_residual_plain(x.reshape(B * H * W, C), a, wp, bp, ln_scale, ln_bias,
+                                      w1, b1, w2, b2).reshape(B, H, W, C)
+
+
+def proj_ln_mlp_residual_grid(x, attn_out_padded, wp, bp, ln_scale, ln_bias, w1, b1, w2, b2):
+    """K8: K4 over x [B, H, W, C] reading the attention output from the
+    window-padded grid [B, Hp, Wp, C] it was written on; returns
+    [B, H, W, C]."""
+    if _build.on_cpu(x):
+        return proj_ln_mlp_residual_grid_plain(x, attn_out_padded, wp, bp, ln_scale, ln_bias,
+                                               w1, b1, w2, b2)
+    B, H, W, C = x.shape
+    _, Hp, Wp, _ = attn_out_padded.shape
+    Fh = w1.shape[0]
+    bf = torch.bfloat16
+    _build.require(x, "x", bf)
+    _build.require(attn_out_padded, "attn_out_padded", bf)
+    if attn_out_padded.shape[0] != B or attn_out_padded.shape[3] != C or Hp < H or Wp < W:
+        raise ValueError(f"attn_out_padded {tuple(attn_out_padded.shape)} is not a padded grid "
+                         f"of x {tuple(x.shape)}")
+    for t, name, shape in ((wp, "wp", (C, C)), (bp, "bp", (C,)), (ln_scale, "ln_scale", (C,)),
+                           (ln_bias, "ln_bias", (C,)), (w1, "w1", (Fh, C)), (b1, "b1", (Fh,)),
+                           (w2, "w2", (C, Fh)), (b2, "b2", (C,))):
+        _build.require(t, name, bf, shape)
+    if C % 128 or Fh % 128:
+        raise ValueError(f"proj_ln_mlp_residual_grid kernel needs C and hidden % 128 == 0, "
+                         f"got {C}, {Fh}")
+    M = B * H * W
+    x1 = torch.empty((M, C), dtype=torch.float32, device=x.device)
+    mid = torch.empty((M, Fh), dtype=bf, device=x.device)
+    out = torch.empty((B, H, W, C), dtype=bf, device=x.device)
+    _build.check(_build.kernels().samroad_proj_ln_mlp_residual_grid(
+        x.data_ptr(), attn_out_padded.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+        ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), x1.data_ptr(), mid.data_ptr(), out.data_ptr(), B, H, W, Hp, Wp, C, Fh,
+        _build.stream_of(x)), "proj_ln_mlp_residual_grid")
+    _build.launches["proj_ln_mlp_residual_grid"] += 1
     return out
 
 

@@ -112,9 +112,33 @@ def test_device_cuda_raises_without_a_gpu_and_sam_checkpoint_is_not_skipped(tmp_
         train.main(["--config", cfg_path, "--output_dir", str(tmp_path / "x")])
     assert not os.path.exists(tmp_path / "x")
     sam = tmp_path / "sam.pth"
-    sam.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    sam.write_bytes(b"")  # an existing file is loaded, so an empty one fails
+    with pytest.raises(EOFError):
         _run(cfg_path, data_root, tmp_path / "y", "--sam_ckpt", str(sam))
+
+
+def test_fast_dev_run_starts_from_a_sam_checkpoint(tmp_path, data_root, capsys):
+    """A SAM-format .pth at 1024 px geometry (vit_t widths): the encoder
+    loads through the pos-embed resize, the decoders stay at random init,
+    and two steps of Adam at BASE_LR 1e-4 x ENCODER_LR_FACTOR move each
+    loaded weight by far less than its distance from the random init."""
+    from test_torch_infer_cli import _fake_sam_state_dict
+
+    sd = _fake_sam_state_dict(5)
+    sam = tmp_path / "sam_fake.pth"
+    torch.save(sd, str(sam))
+    trainer = _run(_config(tmp_path, BASE_LR=1e-4), data_root, tmp_path / "run",
+                   "--fast_dev_run", "--sam_ckpt", str(sam))
+    out = capsys.readouterr().out
+    assert "###### Matched params ######" in out and "training from random init" not in out
+    state = trainer.model.state_dict()
+    n_encoder = sum(1 for k in state if k.startswith("image_encoder"))
+    assert f"... {n_encoder} total" in out
+    assert "map_decoder.0.weight" in out.split("###### Mismatched params ######")[1]
+    assert len(trainer.history) == 2 and all(h["skipped"] == 0 for h in trainer.history)
+    qkv = state["image_encoder.blocks.0.attn.qkv.weight"].cpu()
+    assert (qkv - sd["image_encoder.blocks.0.attn.qkv.weight"]).abs().max() < 1e-3
+    assert state["image_encoder.pos_embed"].shape == (1, 5, 5, 64)  # 64x64 resized to 80 px
 
 
 def _imported_modules(path):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, in bf16 at
 the bench shapes (ViT-B at 512 px: C 768, 12 heads, 32x32 token grid,
-window 14), and the K6 wrappers' forward and gradients at the training
-shapes (the same at batch 16), on an NVIDIA GPU.
+window 14), the K6 wrappers' forward and gradients at the training shapes
+(the same at batch 16), and the grid modes K7, K8 and K10 bit-equal to the
+kernels they vary (K1 + pad, K4 on the cropped input, K2), on an NVIDIA GPU.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
 where torch sees no GPU. This file imports neither jax nor the JAX package,
@@ -162,3 +163,68 @@ def test_cuda_k6_forward_and_gradients_at_training_shapes(cuda, name):
         assert torch.isfinite(a.float()).all()
         assert (err / (1 + b.abs())).max().item() <= 2e-2
         assert err.max().item() <= 2e-2 * b.abs().max().item()
+
+
+def _grid_case(B, dev):
+    """K1's and K4's bench inputs as [B, 32, 32, C], and an attention output
+    on the 42x42 padded grid whose pads are not zero."""
+    _, _, ln_args = _bench_case("ln_dense", B, dev)
+    _, _, tail_args = _bench_case("proj_ln_mlp_residual", B, dev)
+    C = 768
+    x = ln_args[0].reshape(B, 32, 32, C)
+    a_pad = torch.randn((B, 42, 42, C), device=dev).to(torch.bfloat16)
+    return x, ln_args[1:4], tail_args[0].reshape(B, 32, 32, C), a_pad, tail_args[2:]
+
+
+@pytest.mark.cuda
+def test_cuda_ln_dense_padded_is_k1_plus_pad(cuda):
+    """K7: bit-equal to K1 on the real tokens, exact zeros in the pads, and
+    within 2e-2 (1 + |plain|) of its plain version in fp32; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, (s, b, w), *_ = _grid_case(4, cuda)
+    before = _build.launches["ln_dense_padded"]
+    got = fused_ln.ln_dense_padded(x, s, b, w, (10, 10))
+    torch.cuda.synchronize()
+    assert _build.launches["ln_dense_padded"] == before + 1
+    assert got.shape == (4, 42, 42, 2304)
+    flat = fused_ln.ln_dense(x.reshape(-1, 768), s, b, w).reshape(4, 32, 32, 2304)
+    assert torch.equal(got[:, :32, :32], flat)
+    assert not got[:, 32:].any() and not got[:, :, 32:].any()
+    ref = fused_ln.ln_dense_padded_plain(x.float(), s.float(), b.float(), w.float(), (10, 10))
+    assert ((got.float() - ref).abs() / (1 + ref.abs())).max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_proj_ln_mlp_residual_grid_is_k4_on_the_crop(cuda):
+    """K8: bit-equal to K4 on the cropped attention output, and within 2e-2
+    (1 + |plain|) of its plain version in fp32; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, x, a_pad, weights = _grid_case(4, cuda)
+    before = _build.launches["proj_ln_mlp_residual_grid"]
+    got = fused_ln.proj_ln_mlp_residual_grid(x, a_pad, *weights)
+    torch.cuda.synchronize()
+    assert _build.launches["proj_ln_mlp_residual_grid"] == before + 1
+    flat = fused_ln.proj_ln_mlp_residual(x.reshape(-1, 768),
+                                         a_pad[:, :32, :32].reshape(-1, 768).contiguous(),
+                                         *weights).reshape(4, 32, 32, 768)
+    assert torch.equal(got, flat)
+    ref = fused_ln.proj_ln_mlp_residual_grid_plain(x.float(), a_pad.float(),
+                                                   *[t.float() for t in weights])
+    assert ((got.float() - ref).abs() / (1 + ref.abs())).max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,name", [(dict(rolled_rows=True), "rolled"),
+                                       (dict(group_batch=4), "gbatch"),
+                                       (dict(group_batch=2, rolled_rows=True), "gbatch")])
+def test_cuda_window_attention_modes_are_bit_equal_to_k2(cuda, mode, name):
+    """K10: each granularity gives K2's output bit for bit and counts one
+    launch under its own name."""
+    kern, _, args = _bench_case("window_attention_rows_grid", 4, cuda)
+    want = kern(*args)
+    key = f"window_attention_rows_grid_{name}"
+    before = _build.launches[key]
+    got = fused_block.window_attention_rows_grid(*args, 14, 12, **mode)
+    torch.cuda.synchronize()
+    assert _build.launches[key] == before + 1
+    assert torch.equal(got, want)
