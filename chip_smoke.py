@@ -9,7 +9,9 @@ over a generated Cityscale-format dataset with FUSED_ENCODER_TRAIN (K6:
 K1-K4 under autograd), then checks K7, K8 and K10 (the PAD_FREE / WIN_*
 modes) bit-equal to K1, K4 and K2 and drives the inference CLI over two
 generated 2048 px tiles from a SAM-format checkpoint in each mode and the
-calibration CLI, showing that each path ran through its kernels. Every
+calibration CLI, then checks K9 and K11-K13 (the tools' kernels; groups
+bit-equal) and runs the kernel A/B and windowed-block profiling tools,
+showing that each path ran through its kernels. Every
 kernel's time sits beside its bound (bytes or operations at the card's
 peak rates) and, where one PyTorch call computes the same function, that
 call's time.
@@ -116,6 +118,20 @@ K6_PER_FORWARD = {"ln_dense_d": 8, "ln_dense_bias_d": 4, "proj_ln_mlp_residual_d
                   "window_attention_rows_grid_d": 8, "attention_relpos_rows_d": 4,
                   "ln_dense": 12, "window_attention_rows_grid": 8, "attention_relpos_rows": 4,
                   "proj_ln_mlp_residual": 12}
+TOOL_META = {  # phase 11 kernel -> (CUDA source, the TPU kernel it replaces)
+    "ln_mlp_residual": ("sam_road_tpu_torch/csrc/gemm.cu", "sam_road_tpu/ops/fused_ln.py:423"),
+    "window_attention_rows": ("sam_road_tpu_torch/csrc/window_attention.cu",
+                              "sam_road_tpu/ops/fused_block.py:135"),
+    "window_attention_relpos": ("sam_road_tpu_torch/csrc/window_attention.cu",
+                                "sam_road_tpu/ops/fused_block.py:570"),
+    "window_attention_relpos_batched": ("sam_road_tpu_torch/csrc/window_attention.cu",
+                                        "sam_road_tpu/ops/fused_block.py:524"),
+}
+# phase 11: the tools' flagship geometry (tools/experiment_fused_ln.py) and
+# their timing loops; every variant or stage runs 1 + rounds * iters times
+TOOL_SHAPES = dict(tokens=32 * 1024, dim=768, windows=32 * 9, win=14, heads=12)
+AB_LOOP = dict(iters=10, rounds=4)
+PROFILE_LOOP = dict(iters=20, rounds=5)
 
 
 def phase(name):
@@ -173,6 +189,17 @@ def kernel_flops(name: str, args) -> float:
         qkv, bh = args[0], args[2]
         B, nI, nJ, heads, N, _ = bh.shape
         return 4.0 * B * nI * nJ * heads * N * N * (qkv.shape[-1] // 3 // heads)
+    if name == "ln_mlp_residual":  # x [M, C], w1 [4C, C]
+        return 4.0 * args[0].numel() * args[3].shape[0]
+    if name == "window_attention_rows":  # qkv [nW, N, 3C], bh [nW, heads, N, win]
+        nW, heads, N, _ = args[1].shape
+        return 4.0 * nW * heads * N * N * (args[0].shape[-1] // 3 // heads)
+    if name.startswith("window_attention_relpos"):  # + the bias rows from the tables
+        q, rh = args[0], args[-2]  # q [nW, heads, N, hd] or qkv [nW, N, 3C]; rh [2 win - 1, hd]
+        hd, win = rh.shape[1], (rh.shape[0] + 1) // 2
+        nW, N = q.shape[0], q.shape[-2]
+        heads = q.shape[1] if q.dim() == 4 else q.shape[-1] // 3 // hd
+        return 4.0 * nW * heads * N * N * hd + 4.0 * nW * heads * N * win * hd
     if name.startswith("attention_relpos_rows"):  # q [B, heads, N, hd]
         q = args[0]
         return 4.0 * q.shape[0] * q.shape[1] * q.shape[2] ** 2 * q.shape[3]
@@ -210,6 +237,20 @@ def library_call(name: str, args, win: int = 14, heads: int = 12):
     if name.startswith("fused_attention"):
         q, k, v = args
         return lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
+    if name.startswith(("window_attention_rows", "window_attention_relpos")):  # K11-K13
+        from sam_road_tpu_torch.ops.fused_block import _split_heads, expand_rel_pos
+        if name.endswith("batched"):
+            q, k, v, *rows = args
+        else:
+            qkv, *rows = args
+            q, k, v = (x.contiguous() for x in _split_heads(qkv, heads))
+        if name != "window_attention_rows":  # rows are the rel-pos tables: q . R
+            rows = [torch.einsum("whnc,nac->whna", q, r)
+                    for r in expand_rel_pos(*rows, win, q.dtype)]
+        nW, hq, N, _ = q.shape
+        bh, bw = rows
+        mask = (bh[..., :, None] + bw[..., None, :]).reshape(nW, hq, N, N).contiguous()
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     return None
 
 
@@ -1164,6 +1205,104 @@ def run_test_cli(work: str, dev: str = "cuda"):
     return results
 
 
+def check_tool_kernels(dev: str = "cuda", tokens: int = 32 * 1024, dim: int = 768,
+                       windows: int = 32 * 9, win: int = 14, heads: int = 12):
+    """Phase 11a: K9, K11, K12 and K13 at the tools' shapes (tokens [32768,
+    768], hidden 3072; 288 windows of 14 x 14 tokens, 12 heads, bf16): each
+    within TOL of its plain version in fp32, K11-K13 at groups 2 and 4
+    bit-equal to group 1, K13 within TOL of K12 on the same tokens; times
+    beside the bound, the plain version and SDPA with the bias as mask."""
+    import torch
+
+    from sam_road_tpu_torch.ops import fused_block, fused_ln
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0, dt=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    C, N, hd = dim, win * win, dim // heads
+    mlp = (rn(tokens, C), 1 + rn(C, scale=0.1), rn(C, scale=0.1), rn(4 * C, C, scale=C ** -0.5),
+           rn(4 * C, scale=0.1), rn(C, 4 * C, scale=(4 * C) ** -0.5), rn(C, scale=0.1))
+    qkv = rn(windows, N, 3 * C)
+    tables = (rn(2 * win - 1, hd, scale=0.1), rn(2 * win - 1, hd, scale=0.1))
+    split = tuple(t.contiguous() for t in fused_block._split_heads(qkv, heads))
+    cases = {  # name -> (kernel, plain, inputs); K11-K13's kernels take group=
+        "ln_mlp_residual": (fused_ln.ln_mlp_residual, fused_ln.ln_mlp_residual_plain, mlp),
+        "window_attention_rows": (
+            lambda *a, group=1: fused_block.window_attention_rows(*a, win, heads, group=group),
+            lambda *a: fused_block.window_attention_rows_plain(*a, win, heads),
+            (qkv, rn(windows, heads, N, win), rn(windows, heads, N, win))),
+        "window_attention_relpos": (
+            lambda *a, group=1: fused_block.window_attention_relpos(*a, win, heads, group=group),
+            lambda *a: fused_block.window_attention_relpos_plain(*a, win, heads),
+            (qkv,) + tables),
+        "window_attention_relpos_batched": (
+            lambda *a, group=1: fused_block.window_attention_relpos_batched(*a, win, group=group),
+            lambda *a: fused_block.window_attention_relpos_batched_plain(*a, win),
+            split + tables),
+    }
+    results, outs = {}, {}
+    for name, (kern, plain, args) in cases.items():
+        got = kern(*args)
+        same = name == "ln_mlp_residual" or all(torch.equal(kern(*args, group=g), got)
+                                                for g in (2, 4))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ref = plain(*[t.float() for t in args])
+        err = (got.float() - ref).abs()
+        max_abs, max_rel = err.max().item(), (err / (1 + ref.abs())).max().item()
+        del ref, err
+        row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args))
+        ok = same and max_rel <= TOL and bool(torch.isfinite(got.float()).all())
+        print(f"kernel {name}: shape {tuple(got.shape)} groups 2 and 4 bit-equal to 1 {same} "
+              f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} (tol {TOL}) "
+              f"{fmt_times(row)} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"kernel {name} disagrees with its plain version or across groups")
+        results[name] = dict(max_abs_err=max_abs, **row)
+        outs[name] = got
+    k12 = outs["window_attention_relpos"].float()
+    k13 = outs["window_attention_relpos_batched"].permute(0, 2, 1, 3).reshape(k12.shape).float()
+    rel = ((k13 - k12).abs() / (1 + k12.abs())).max().item()
+    print(f"K13 on split heads vs K12 on the window layout: max_rel_err {rel:.3e} (tol {TOL}) "
+          f"{'ok' if rel <= TOL else 'FAIL'}", flush=True)
+    if rel > TOL:
+        raise SystemExit("window_attention_relpos_batched disagrees with window_attention_relpos")
+    return results
+
+
+def run_tools(dev: str = "cuda", shapes: dict = TOOL_SHAPES, profile_shapes: dict | None = None):
+    """Phase 11b: the port's two tools in process, their main path: the
+    kernel A/B (`tools/experiment_fused_ln.py all`) and the windowed-block
+    profiler. Every kernel variant's L1 within 1e-2 of its plain
+    counterpart's, every launch count exact; returns the launches."""
+    from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.tools import experiment_fused_ln, profile_windowed_block
+
+    _build.reset_launches()
+    ab = experiment_fused_ln.main("all", dev, **shapes, **AB_LOOP)
+    profile_windowed_block.main(dev, **(profile_shapes or {}), **PROFILE_LOOP)
+    launches = dict(_build.launches)
+    per_ab = 1 + AB_LOOP["iters"] * AB_LOOP["rounds"]
+    per_stage = 1 + PROFILE_LOOP["iters"] * PROFILE_LOOP["rounds"]
+    want = {  # ln_dense: cuda_ln_dense and all four stages; K2 in attn and full
+        "ln_dense": per_ab + 4 * per_stage, "ln_mlp_residual": per_ab,
+        "fused_attention": per_ab, "window_attention_relpos": per_ab,
+        "window_attention_rows": 3 * per_ab, "window_attention_relpos_batched": per_ab,
+        "window_attention_rows_grid": 2 * per_stage, "proj_ln_mlp_residual": per_stage}
+    if dev != "cuda":
+        want = {}  # the plain versions launch nothing
+    ratios = {k: ab[f"{k}_l1"] / ab[f"{p}_l1"] for k, p in experiment_fused_ln.PAIRS.items()}
+    print(f"tools: launches {launches}; L1 over the plain counterpart's {ratios}", flush=True)
+    if launches != want:
+        raise SystemExit(f"tools launches {launches}, expected {want}")
+    if not all(abs(r - 1) <= 1e-2 for r in ratios.values()):
+        raise SystemExit(f"a tool variant's L1 is off its plain counterpart's: {ratios}")
+    return launches
+
+
 def main():
     phase("1 device")
     import torch
@@ -1229,6 +1368,12 @@ def main():
     grid_launches = {**infer_runs["pad_free"]["launches"],
                      **infer_runs["pad_free_g4"]["launches"], **infer_runs["rolled"]["launches"]}
 
+    phase("11 the tools: K9, K11, K12, K13, the kernel A/B and the windowed-block profiler")
+    t = time.time()
+    tool = check_tool_kernels()
+    tool_launches = run_tools()
+    print(f"phase 11 took {time.time() - t:.1f} s", flush=True)
+
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
@@ -1239,6 +1384,9 @@ def main():
     for name, (src, replaces) in K10_META.items():  # K7, K8, K10
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=grid_launches[name], **grid[name]))
+    for name, (src, replaces) in TOOL_META.items():  # K9, K11, K12, K13
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                            launches=tool_launches[name], **tool[name]))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,14 @@
 //   K8 proj_ln_mlp_residual_grid (replaces fused_ln.py::proj_ln_mlp_residual_grid,
 //      _proj_ln_mlp_grid_kernel): K4 whose first launch reads the attention
 //      output with A_GRID; it saves the crop copy before the tail.
+//
+// K9 ln_mlp_residual (replaces sam_road_tpu/ops/fused_ln.py::ln_mlp_residual,
+// _ln_mlp_kernel): K4's second and third launches over a bf16 input, with no
+// new arithmetic: mid = GELU(LN(x) . W1 + b1) with A_LN_BF16, then
+// out = x + b2 + mid . W2 with RES_BF16 (the residual is x itself, where K4's
+// is its fp32 x1). Bound by the tensor cores (309 GFLOP per call at
+// M = 32768, C = 768, hidden 3072); the TPU kernel keeps the hidden in VMEM,
+// here it makes one bf16 round trip through HBM (0.4 GB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -423,6 +431,22 @@ int samroad_proj_ln_mlp_residual(const void* x, const void* a, const void* wp,
   return proj_ln_mlp_residual<false>(x, a, wp, bp, ln_s, ln_b, w1, b1, w2, b2, x1, mid, out, M,
                                      C, F, reinterpret_cast<cudaStream_t>(stream),
                                      GridMap{0, 0, 0, 0});
+}
+
+// K9 in two launches on one stream:
+//   mid[M, F] bf16 = GELU(LN(x) . w1^T + b1)
+//   out[M, C] bf16 = x + b2 + mid . w2^T
+// mid is caller-allocated scratch.
+int samroad_ln_mlp_residual(const void* x, const void* ln_s, const void* ln_b, const void* w1,
+                            const void* b1, const void* w2, const void* b2, void* mid, void* out,
+                            int M, int C, int F, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (C % BN || F % BN || C % BK || F % BK || M <= 0) return (int)cudaErrorInvalidValue;
+  launch<A_LN_BF16, true, true, RES_NONE, false>(x, w1, b1, nullptr, ln_s, ln_b, mid, M, F, C, s);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  launch<A_BF16, true, false, RES_BF16, false>(mid, w2, b2, x, nullptr, nullptr, out, M, C, F, s);
+  return (int)cudaGetLastError();
 }
 
 // K7: out[B, Hp, Wp, N] bf16 = LN(x[B, H, W, K]) . w[N, K]^T on the real

@@ -1,8 +1,9 @@
-// Windowed multi-head attention on the zero-padded token grid: the CUDA
-// kernel behind K2 (window_attention_rows_grid) of
-// sam_road_tpu_torch/ops/fused_block.py.
+// Windowed multi-head attention with SAM's decomposed rel-pos bias: the CUDA
+// kernels behind K2 / K10 (window_attention_rows_grid) and K11-K13
+// (window_attention_rows, window_attention_relpos,
+// window_attention_relpos_batched) of sam_road_tpu_torch/ops/fused_block.py.
 //
-// Replaces sam_road_tpu/ops/fused_block.py::window_attention_rows_grid at
+// K2 replaces sam_road_tpu/ops/fused_block.py::window_attention_rows_grid at
 // its default granularity (_window_attn_rows_grid_kernel + _win_attn_body).
 // One block per (image, window, head), as one Pallas program per (image,
 // window) looped over heads. q, k and v are read with strides straight out
@@ -14,9 +15,9 @@
 // MFLOP against 2 x 196 x 64 x 4 x 2 bytes, so the card is bound by latency
 // and shared-memory traffic, not by HBM or the tensor cores. The design
 // keeps every intermediate in shared memory: the 196 tokens are padded to
-// Np = 208 rows (13 strips of 16; K13's padded layout) with the pad KEYS
-// masked to -inf -- not to be confused with the window-padding tokens,
-// which are real keys -- and each of 4 warps walks query strips of 16:
+// Np = 208 rows (13 strips of 16) with the pad KEYS masked to -inf -- not
+// to be confused with the window-padding tokens, which are real keys -- and
+// each of 4 warps walks query strips of 16:
 //   s = q.k^T * scale + bh[n, i'] + bw[n, j']     (fp32, key n' = (i', j'))
 //   p = exp(s - max), l = sum p,  out = (bf16(p) . v) / l
 // the score strip never leaves shared memory (a full 196 x 196 fp32 score
@@ -26,7 +27,7 @@
 // K10: the rolled_rows / group_batch granularities of the same function
 // (_window_attn_rows_grid_rolled_kernel, _window_attn_rows_grid_gbatch_kernel)
 // are choices of how blocks map to work, over the same per-window code
-// (attend_window), so their outputs are bit-equal to K2's:
+// (attend), so their outputs are bit-equal to K2's:
 //   MODE_WINDOW  one block per (image, window, head)             (K2)
 //   MODE_ROLLED  one block per (image, window row, head), looping over the
 //                row's nJ windows
@@ -35,6 +36,30 @@
 // On the TPU they cut the program count of a latency-bound dispatch. Here
 // nothing is shared across the loop's iterations (each window reloads its
 // q/k/v), so they only trade parallelism for fewer, longer blocks.
+//
+// K11-K13 are modes of the same per-window code that differ from K2 in where
+// the tokens live, where the bias rows come from and when p is normalised;
+// each is bound like K2 by latency and shared memory (their HBM bound is
+// 0.10-0.12 ms at nW = 288 windows of 196 tokens, C = 768, 12 heads):
+//   K11 window_attention_rows (replaces fused_block.py::window_attention_rows,
+//       _window_attn_rows_kernel): the materialised window layout
+//       qkv [nW, N, 3C] with the bias already in, bias rows [nW, H, N, win]
+//       bf16, output [nW, N, C];
+//   K12 window_attention_relpos (replaces fused_block.py::
+//       window_attention_relpos, _window_attn_kernel): K11's layout, the bias
+//       rows built in the kernel from the expanded tables rh, rw [N, win, hd]:
+//       bh[n, a] = sum_c q[n, c] rh[n, a, c] in fp32 into shared memory, never
+//       rounded to bf16;
+//   K13 window_attention_relpos_batched (replaces fused_block.py::
+//       window_attention_relpos_batched, _window_attn_batched_kernel): K12's
+//       function on head-split q, k, v [nW, H, N, hd] -> [nW, H, N, hd]. The
+//       TPU pads 196 tokens to 256 with -1e30 keys for lane alignment; those
+//       keys contribute exactly 0, and here the 208-row layout's -inf pad keys
+//       do the same, so no padded copy is made.
+// All three normalise p before p.v: p = exp(s - max) / l, rounded to bf16,
+// then p.v (K2 divides after the product, so K11 equals K2 only within bf16
+// rounding). `group` windows a block, the block looping over them, is the
+// JAX kernels' windows-per-program and gives bit-equal outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,11 +76,13 @@ constexpr int HD = 64;             // head dim the kernel is written for
 constexpr int LDQ = HD + 8;        // smem row stride of q/k/v (bf16)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
+constexpr size_t SMEM_MAX = 232448;  // a block's dynamic shared memory on Hopper
 
 struct Layout {  // dynamic shared memory carve-up, byte offsets
   int np, lds, ldp;
-  size_t q, k, v, warp0, warp_bytes, s_off, p_off, l_off, total;
-  __host__ __device__ Layout(int N) {
+  size_t q, k, v, table, warp0, warp_bytes, s_off, p_off, l_off, total;
+  // table_win > 0 reserves fp32 bias rows [np, 2 * table_win] (K12, K13).
+  __host__ __device__ Layout(int N, int table_win = 0) {
     np = (N + 15) & ~15;
     lds = np + 4;   // fp32 score row stride (multiple of 4)
     ldp = np + 8;   // bf16 probability row stride (multiple of 8)
@@ -63,7 +90,8 @@ struct Layout {  // dynamic shared memory carve-up, byte offsets
     q = 0;
     k = qkv;
     v = 2 * qkv;
-    warp0 = 3 * qkv;
+    table = 3 * qkv;
+    warp0 = table + (((size_t)np * 2 * table_win * sizeof(float) + 127) & ~(size_t)127);
     s_off = 0;
     p_off = (16 * lds * sizeof(float) + 127) & ~(size_t)127;
     l_off = p_off + ((16 * ldp * sizeof(bf16) + 127) & ~(size_t)127);
@@ -74,39 +102,69 @@ struct Layout {  // dynamic shared memory carve-up, byte offsets
 
 enum Mode { MODE_WINDOW = 0, MODE_ROLLED = 1, MODE_GBATCH = 2 };
 
-// Attention of one (image b, window (wi, wj), head) with the whole block.
-__device__ __forceinline__ void attend_window(
-    const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_bias,
-    const bf16* __restrict__ bh, const bf16* __restrict__ bw, bf16* __restrict__ out,
-    unsigned char* smem, const Layout& L, int b, int wi, int wj, int head, int Hp, int Wp,
-    int C, int heads, int win, float scale) {
+// Where one (window, head)'s tokens, bias rows and output live. Token
+// n = (i, j) of the window sits at element i * row + j * col from q / k / v
+// (channel 0 of this head) and from out.
+struct Tile {
+  const bf16 *q, *k, *v;
+  bf16* out;
+  int64_t in_row, in_col, out_row, out_col;
+  const bf16 *bh, *bw;    // bias rows [N, win] (K2, K11) or expanded tables [N, win, HD] (K12, K13)
+  const bf16* qkv_bias;   // this head's q bias, k's at +C and v's at +2C (K2), or null
+  int C;
+};
+
+__device__ __forceinline__ float dot_bf16x64(const bf16* a, const bf16* b) {
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < HD; c += 8) {
+    const uint4 ua = *reinterpret_cast<const uint4*>(a + c);
+    const uint4 ub = *reinterpret_cast<const uint4*>(b + c);
+    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&ua);
+    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&ub);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(ha[i]), y = __bfloat1622float2(hb[i]);
+      acc += x.x * y.x;
+      acc += x.y * y.y;
+    }
+  }
+  return acc;
+}
+
+// Attention of one (window, head) with the whole block. TABLE: the bias rows
+// are built here from the expanded tables; NORM_FIRST: p is normalised
+// before p.v (K11-K13), else after (K2).
+template <bool TABLE, bool NORM_FIRST>
+__device__ __forceinline__ void attend(const Tile& t, unsigned char* smem, const Layout& L,
+                                       int win, float scale) {
   const int N = win * win;
   bf16 (*Qs)[LDQ] = reinterpret_cast<bf16 (*)[LDQ]>(smem + L.q);
   bf16 (*Ks)[LDQ] = reinterpret_cast<bf16 (*)[LDQ]>(smem + L.k);
   bf16 (*Vs)[LDQ] = reinterpret_cast<bf16 (*)[LDQ]>(smem + L.v);
-  const int nI = Hp / win, nJ = Wp / win;
-  const int C3 = 3 * C;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // q/k/v of this (window, head), bias added to every token (pad tokens
-  // included); rows N..Np-1 are zero.
+  // q/k/v of this (window, head), the qkv bias (if any) added to every token
+  // (pad tokens included); rows N..Np-1 are zero.
   for (int e = tid; e < L.np * (HD / 8); e += THREADS) {
     const int n = e / (HD / 8), c = (e % (HD / 8)) * 8;
     uint4 vals[3];
     if (n < N) {
-      const int gy = wi * win + n / win, gx = wj * win + n % win;
-      const bf16* base = qkv + ((int64_t)(b * Hp + gy) * Wp + gx) * C3 + head * HD + c;
+      const int64_t off = (n / win) * t.in_row + (n % win) * t.in_col + c;
+      const bf16* src[3] = {t.q, t.k, t.v};
 #pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        uint4 u = *reinterpret_cast<const uint4*>(base + t * C);
-        const uint4 bu = *reinterpret_cast<const uint4*>(qkv_bias + t * C + head * HD + c);
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-        const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&bu);
+      for (int p = 0; p < 3; ++p) {
+        uint4 u = *reinterpret_cast<const uint4*>(src[p] + off);
+        if (t.qkv_bias) {
+          const uint4 bu = *reinterpret_cast<const uint4*>(t.qkv_bias + p * t.C + c);
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+          const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&bu);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 x = __bfloat1622float2(h[i]), y = __bfloat1622float2(hb[i]);
-          h[i] = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
+          for (int i = 0; i < 4; ++i) {
+            const float2 x = __bfloat1622float2(h[i]), y = __bfloat1622float2(hb[i]);
+            h[i] = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
+          }
         }
-        vals[t] = u;
+        vals[p] = u;
       }
     } else {
       vals[0] = vals[1] = vals[2] = make_uint4(0u, 0u, 0u, 0u);
@@ -117,11 +175,23 @@ __device__ __forceinline__ void attend_window(
   }
   __syncthreads();
 
+  // K12 / K13: bias rows [n][0, win) = q[n] . rh[n, a], [n][win, 2 win) =
+  // q[n] . rw[n, a], fp32, one (n, a) a thread.
+  float* table = reinterpret_cast<float*>(smem + L.table);
+  if constexpr (TABLE) {
+    for (int e = tid; e < N * 2 * win; e += THREADS) {
+      const int n = e / (2 * win), a = e % (2 * win);
+      const bf16* r = a < win ? t.bh + ((int64_t)n * win + a) * HD
+                              : t.bw + ((int64_t)n * win + a - win) * HD;
+      table[e] = dot_bf16x64(&Qs[n][0], r);
+    }
+    __syncthreads();
+  }
+
   unsigned char* wbase = smem + L.warp0 + warp * L.warp_bytes;
   float* S = reinterpret_cast<float*>(wbase + L.s_off);
   bf16* P = reinterpret_cast<bf16*>(wbase + L.p_off);
   float* lsum = reinterpret_cast<float*>(wbase + L.l_off);
-  const int64_t rows_base = ((((int64_t)b * nI + wi) * nJ + wj) * heads + head) * N;
   const int nstrips = L.np / 16;
 
   for (int strip = warp; strip < nstrips; strip += WARPS) {
@@ -144,15 +214,20 @@ __device__ __forceinline__ void attend_window(
     // scale + rel-pos spread + pad-key mask, fp32 softmax numerator
     for (int r = 0; r < 16; ++r) {
       const int n = r0 + r;
-      const bf16* bhr = bh + (rows_base + (n < N ? n : 0)) * win;
-      const bf16* bwr = bw + (rows_base + (n < N ? n : 0)) * win;
+      const int nb = n < N ? n : 0;
       float* srow = S + r * L.lds;
       float mx = -INFINITY;
       for (int m = lane; m < L.np; m += 32) {
         float s = -INFINITY;
         if (m < N) {
           s = srow[m] * scale;
-          if (n < N) s += __bfloat162float(bhr[m / win]) + __bfloat162float(bwr[m % win]);
+          if (n < N) {
+            if constexpr (TABLE)
+              s += table[nb * 2 * win + m / win] + table[nb * 2 * win + win + m % win];
+            else
+              s += __bfloat162float(t.bh[nb * win + m / win]) +
+                   __bfloat162float(t.bw[nb * win + m % win]);
+          }
         }
         srow[m] = s;
         mx = fmaxf(mx, s);
@@ -163,14 +238,21 @@ __device__ __forceinline__ void attend_window(
       for (int m = lane; m < L.np; m += 32) {
         const float p = m < N ? expf(srow[m] - mx) : 0.f;
         sum += p;
-        P[r * L.ldp + m] = __float2bfloat16_rn(p);
+        if constexpr (NORM_FIRST)
+          srow[m] = p;
+        else
+          P[r * L.ldp + m] = __float2bfloat16_rn(p);
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) lsum[r] = sum;
+      if constexpr (NORM_FIRST) {
+        for (int m = lane; m < L.np; m += 32) P[r * L.ldp + m] = __float2bfloat16_rn(srow[m] / sum);
+      } else {
+        if (lane == 0) lsum[r] = sum;
+      }
     }
     __syncwarp();
-    // (p . v), normalised after the product
+    // p . v (then / l unless p was normalised)
 #pragma unroll
     for (int d = 0; d < HD; d += 16) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
@@ -189,13 +271,38 @@ __device__ __forceinline__ void attend_window(
       const int r = e / HD, d = e % HD;
       const int n = r0 + r;
       if (n < N) {
-        const int gy = wi * win + n / win, gx = wj * win + n % win;
-        out[((int64_t)(b * Hp + gy) * Wp + gx) * C + head * HD + d] =
-            __float2bfloat16_rn(S[r * L.lds + d] / lsum[r]);
+        const float o = NORM_FIRST ? S[r * L.lds + d] : S[r * L.lds + d] / lsum[r];
+        t.out[(n / win) * t.out_row + (n % win) * t.out_col + d] = __float2bfloat16_rn(o);
       }
     }
     __syncwarp();
   }
+}
+
+// K2 / K10: image b, window (wi, wj), head of the padded grid.
+__device__ __forceinline__ void attend_grid(const bf16* qkv, const bf16* qkv_bias, const bf16* bh,
+                                            const bf16* bw, bf16* out, unsigned char* smem,
+                                            const Layout& L, int b, int wi, int wj, int head,
+                                            int Hp, int Wp, int C, int heads, int win,
+                                            float scale) {
+  const int N = win * win;
+  const int nI = Hp / win, nJ = Wp / win;
+  const int64_t row0 = ((int64_t)b * Hp + wi * win) * Wp + wj * win;  // token (0, 0)
+  const int64_t rows = ((((int64_t)b * nI + wi) * nJ + wj) * heads + head) * N * win;
+  Tile t;
+  t.q = qkv + row0 * 3 * C + head * HD;
+  t.k = t.q + C;
+  t.v = t.q + 2 * C;
+  t.out = out + row0 * C + head * HD;
+  t.in_row = (int64_t)Wp * 3 * C;
+  t.in_col = 3 * C;
+  t.out_row = (int64_t)Wp * C;
+  t.out_col = C;
+  t.bh = bh + rows;
+  t.bw = bw + rows;
+  t.qkv_bias = qkv_bias + head * HD;
+  t.C = C;
+  attend<false, false>(t, smem, L, win, scale);
 }
 
 template <int MODE>
@@ -213,8 +320,8 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ q
     const int wi = idx % nI, b = idx / nI;
     for (int wj = 0; wj < nJ; ++wj) {
       if (wj) __syncthreads();  // the previous window's q/k/v are consumed
-      attend_window(qkv, qkv_bias, bh, bw, out, smem, L, b, wi, wj, head, Hp, Wp, C, heads,
-                    win, scale);
+      attend_grid(qkv, qkv_bias, bh, bw, out, smem, L, b, wi, wj, head, Hp, Wp, C, heads, win,
+                  scale);
     }
   } else {
     const int wj = idx % nJ; idx /= nJ;
@@ -223,30 +330,90 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ q
     if constexpr (MODE == MODE_GBATCH) {
       for (int g = 0; g < G; ++g) {
         if (g) __syncthreads();
-        attend_window(qkv, qkv_bias, bh, bw, out, smem, L, b0 * G + g, wi, wj, head, Hp, Wp,
-                      C, heads, win, scale);
+        attend_grid(qkv, qkv_bias, bh, bw, out, smem, L, b0 * G + g, wi, wj, head, Hp, Wp, C,
+                    heads, win, scale);
       }
     } else {
-      attend_window(qkv, qkv_bias, bh, bw, out, smem, L, b0, wi, wj, head, Hp, Wp, C, heads,
-                    win, scale);
+      attend_grid(qkv, qkv_bias, bh, bw, out, smem, L, b0, wi, wj, head, Hp, Wp, C, heads, win,
+                  scale);
     }
   }
+}
+
+// K11 (TABLE false), K12 (TABLE true) on the window layout, K13 (HEADSPLIT)
+// on head-split tensors: one block per (group of G windows, head), looping
+// over the group's windows.
+template <bool HEADSPLIT, bool TABLE>
+__global__ void __launch_bounds__(THREADS)
+window_layout_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ bh,
+                     const bf16* __restrict__ bw, bf16* __restrict__ out, int C, int heads,
+                     int win, int G, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L(win * win, TABLE ? win : 0);
+  const int N = win * win;
+  const int head = blockIdx.x % heads;
+  const int w0 = blockIdx.x / heads * G;
+  for (int g = 0; g < G; ++g) {
+    if (g) __syncthreads();  // the previous window's q/k/v and bias rows are consumed
+    const int64_t w = w0 + g;
+    // token (0, 0) of this (window, head); q, k and v are the three thirds
+    // of one qkv row (window layout) or three tensors (head-split)
+    const int64_t in0 = HEADSPLIT ? (w * heads + head) * N * HD : w * N * 3 * C + head * HD;
+    Tile t;
+    t.q = q + in0;
+    t.k = k + in0;
+    t.v = v + in0;
+    t.out = out + (HEADSPLIT ? in0 : w * N * C + head * HD);
+    t.in_col = HEADSPLIT ? HD : 3 * C;
+    t.out_col = HEADSPLIT ? HD : C;
+    t.in_row = win * t.in_col;
+    t.out_row = win * t.out_col;
+    if constexpr (TABLE) {  // the expanded tables, shared by every window and head
+      t.bh = bh;
+      t.bw = bw;
+    } else {
+      t.bh = bh + (w * heads + head) * N * win;
+      t.bw = bw + (w * heads + head) * N * win;
+    }
+    t.qkv_bias = nullptr;
+    t.C = C;
+    attend<TABLE, true>(t, smem, L, win, scale);
+  }
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, const Layout& L, int blocks, cudaStream_t stream,
+                   Args... args) {
+  if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)L.total);
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, THREADS, L.total, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 template <int MODE>
 cudaError_t launch_window(const void* qkv, const void* qkv_bias, const void* bh,
                           const void* bw, void* out, int blocks, int Hp, int Wp, int C,
                           int heads, int win, int G, cudaStream_t stream) {
-  const Layout L(win * win);
-  cudaError_t e = cudaFuncSetAttribute(window_attention_kernel<MODE>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)L.total);
-  if (e != cudaSuccess) return e;
-  window_attention_kernel<MODE><<<blocks, THREADS, L.total, stream>>>(
-      reinterpret_cast<const bf16*>(qkv), reinterpret_cast<const bf16*>(qkv_bias),
-      reinterpret_cast<const bf16*>(bh), reinterpret_cast<const bf16*>(bw),
-      reinterpret_cast<bf16*>(out), Hp, Wp, C, heads, win, G, 1.0f / sqrtf((float)HD));
-  return cudaGetLastError();
+  return launch(window_attention_kernel<MODE>, Layout(win * win), blocks, stream,
+                reinterpret_cast<const bf16*>(qkv), reinterpret_cast<const bf16*>(qkv_bias),
+                reinterpret_cast<const bf16*>(bh), reinterpret_cast<const bf16*>(bw),
+                reinterpret_cast<bf16*>(out), Hp, Wp, C, heads, win, G,
+                1.0f / sqrtf((float)HD));
+}
+
+template <bool HEADSPLIT, bool TABLE>
+int launch_layout(const void* q, const void* k, const void* v, const void* bh, const void* bw,
+                  void* out, int nW, int C, int heads, int win, int G, cudaStream_t stream) {
+  if (C != heads * HD || win <= 0 || win * win > 256 || G <= 0 || nW <= 0 || nW % G)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch(window_layout_kernel<HEADSPLIT, TABLE>, Layout(win * win, TABLE ? win : 0),
+                     nW / G * heads, stream, reinterpret_cast<const bf16*>(q),
+                     reinterpret_cast<const bf16*>(k), reinterpret_cast<const bf16*>(v),
+                     reinterpret_cast<const bf16*>(bh), reinterpret_cast<const bf16*>(bw),
+                     reinterpret_cast<bf16*>(out), C, heads, win, G, 1.0f / sqrtf((float)HD));
 }
 
 }  // namespace
@@ -275,6 +442,31 @@ int samroad_window_attention(const void* qkv, const void* qkv_bias, const void* 
                                            (B / G) * nI * nJ * heads, Hp, Wp, C, heads, win,
                                            G, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K11: qkv [nW, win*win, 3C] bf16 (bias in), bh / bw [nW, heads, win*win,
+// win] bf16 -> out [nW, win*win, C] bf16; G windows a block (G divides nW).
+int samroad_window_attention_rows(const void* qkv, const void* bh, const void* bw, void* out,
+                                  int nW, int C, int heads, int win, int G, void* stream) {
+  const bf16* p = reinterpret_cast<const bf16*>(qkv);
+  return launch_layout<false, false>(p, p + C, p + 2 * C, bh, bw, out, nW, C, heads, win, G,
+                                     reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K12: K11's qkv and out, the expanded tables rh / rw [win*win, win, 64] bf16.
+int samroad_window_attention_relpos(const void* qkv, const void* rh, const void* rw, void* out,
+                                    int nW, int C, int heads, int win, int G, void* stream) {
+  const bf16* p = reinterpret_cast<const bf16*>(qkv);
+  return launch_layout<false, true>(p, p + C, p + 2 * C, rh, rw, out, nW, C, heads, win, G,
+                                    reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K13: q, k, v, out [nW, heads, win*win, 64] bf16, rh / rw as K12's.
+int samroad_window_attention_relpos_batched(const void* q, const void* k, const void* v,
+                                            const void* rh, const void* rw, void* out, int nW,
+                                            int heads, int win, int G, void* stream) {
+  return launch_layout<true, true>(q, k, v, rh, rw, out, nW, heads * HD, heads, win, G,
+                                   reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

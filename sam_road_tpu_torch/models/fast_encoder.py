@@ -103,6 +103,26 @@ def _tail(x, out, blk, dt, diff: bool):
                 *_tail_weights(blk, dt)).reshape(B, H, W, C)
 
 
+def _bias_rows(qkv_p, attn, num_heads: int, ws: int):
+    """bh = q.Rh, bw = q.Rw [B, nI, nJ, heads, ws*ws, ws] for every window
+    and head of the bias-free padded qkv grid [B, Hp, Wp, 3C], with the qkv
+    bias's share bias_q.R added analytically."""
+    B, Hp, Wp, C3 = qkv_p.shape
+    C, dt = C3 // 3, qkv_p.dtype
+    nI, nJ = Hp // ws, Wp // ws
+    hd = C // num_heads
+    Rh = rel_pos_table(ws, attn.rel_pos_h).to(dt)  # (ws, ws, hd)
+    Rw = rel_pos_table(ws, attn.rel_pos_w).to(dt)
+    q_p = qkv_p[..., :C].reshape(B, nI, ws, nJ, ws, num_heads, hd)
+    bias_q = attn.qkv.bias[:C].reshape(num_heads, hd).to(dt)
+    bh = torch.einsum("bIiJjhc,iac->bIJhija", q_p, Rh)
+    bw = torch.einsum("bIiJjhc,jac->bIJhija", q_p, Rw)
+    bh = bh + torch.einsum("hc,iac->hia", bias_q, Rh)[None, None, None, :, :, None, :]
+    bw = bw + torch.einsum("hc,jac->hja", bias_q, Rw)[None, None, None, :, None, :, :]
+    rows = (B, nI, nJ, num_heads, ws * ws, ws)
+    return bh.reshape(rows).contiguous(), bw.reshape(rows).contiguous()
+
+
 def _windowed_block(x, blk, num_heads: int, ws: int, diff: bool = False):
     B, H, W, C = x.shape
     dt = x.dtype
@@ -116,19 +136,7 @@ def _windowed_block(x, blk, num_heads: int, ws: int, diff: bool = False):
     else:
         qkv_nb = _ln_qkv(x.reshape(B * H * W, C), blk, dt, False, diff)
         qkv_p = F.pad(qkv_nb.reshape(B, H, W, 3 * C), (0, 0, 0, pad_w, 0, pad_h))
-    nI, nJ = (H + pad_h) // ws, (W + pad_w) // ws
-    hd = C // num_heads
-    Rh = rel_pos_table(ws, attn.rel_pos_h).to(dt)  # (ws, ws, hd)
-    Rw = rel_pos_table(ws, attn.rel_pos_w).to(dt)
-    q_p = qkv_p[..., :C].reshape(B, nI, ws, nJ, ws, num_heads, hd)
-    bias_q = attn.qkv.bias[:C].reshape(num_heads, hd).to(dt)
-    bh = torch.einsum("bIiJjhc,iac->bIJhija", q_p, Rh)
-    bw = torch.einsum("bIiJjhc,jac->bIJhija", q_p, Rw)
-    bh = bh + torch.einsum("hc,iac->hia", bias_q, Rh)[None, None, None, :, :, None, :]
-    bw = bw + torch.einsum("hc,jac->hja", bias_q, Rw)[None, None, None, :, None, :, :]
-    N = ws * ws
-    bh = bh.reshape(B, nI, nJ, num_heads, N, ws).contiguous()
-    bw = bw.reshape(B, nI, nJ, num_heads, N, ws).contiguous()
+    bh, bw = _bias_rows(qkv_p, attn, num_heads, ws)
     if diff:
         out_p = window_attention_rows_grid_d(qkv_p, _w(attn.qkv.bias, dt), bh, bw, ws,
                                              num_heads)

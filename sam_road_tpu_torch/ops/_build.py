@@ -37,7 +37,11 @@ _SIGNATURES = {
     "samroad_proj_ln_mlp_residual": [_P] * 13 + [_I] * 3 + [_P],
     "samroad_ln_dense_padded": [_P] * 5 + [_I] * 7 + [_P],
     "samroad_proj_ln_mlp_residual_grid": [_P] * 13 + [_I] * 7 + [_P],
+    "samroad_ln_mlp_residual": [_P] * 9 + [_I] * 3 + [_P],
     "samroad_window_attention": [_P] * 5 + [_I] * 8 + [_P],
+    "samroad_window_attention_rows": [_P] * 4 + [_I] * 5 + [_P],
+    "samroad_window_attention_relpos": [_P] * 4 + [_I] * 5 + [_P],
+    "samroad_window_attention_relpos_batched": [_P] * 6 + [_I] * 4 + [_P],
     "samroad_relpos_attention": [_P] * 6 + [_I] * 4 + [_P],
     "samroad_flash_attention": [_P] * 4 + [_I] * 4 + [_P],
 }

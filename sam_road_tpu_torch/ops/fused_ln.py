@@ -1,6 +1,7 @@
 """K1 ln_dense and K4 proj_ln_mlp_residual: the encoder's per-token chains
-(counterparts of sam_road_tpu/ops/fused_ln.py), and their window-grid modes
-K7 ln_dense_padded and K8 proj_ln_mlp_residual_grid (the PAD_FREE path).
+(counterparts of sam_road_tpu/ops/fused_ln.py), their window-grid modes
+K7 ln_dense_padded and K8 proj_ln_mlp_residual_grid (the PAD_FREE path), and
+K9 ln_mlp_residual (the tools' LN + MLP + residual).
 
 Each public function dispatches on its input's device: a CPU tensor takes
 the plain PyTorch version (`*_plain`), a CUDA tensor launches the
@@ -29,6 +30,13 @@ the attention output at its padded-grid row, so the crop copy goes. On the
 real tokens each is bit-equal to K1 and K4: the K loop, the accumulation
 order and the epilogues are unchanged. Bound like K1 and K4 by tensor-core
 rate.
+
+K9 replaces fused_ln.py::ln_mlp_residual (_ln_mlp_kernel). It is K4's last
+two launches with no new arithmetic: mid = GELU(LN(x).W1 + b1) in bf16, then
+out = x + b2 + mid.W2 with x (bf16) as the residual where K4 has its fp32
+x1. The TPU kernel keeps the hidden in VMEM; here it makes one bf16 round
+trip through HBM (0.4 GB at M = 32768). Bound by tensor-core rate (309 GFLOP
+per call at that M, C 768, hidden 3072).
 
 K6 (the training path, FUSED_ENCODER_TRAIN): ln_dense_d, ln_dense_bias_d
 and proj_ln_mlp_residual_d are autograd.Functions that replace the JAX
@@ -222,6 +230,45 @@ def proj_ln_mlp_residual_grid(x, attn_out_padded, wp, bp, ln_scale, ln_bias, w1,
         b2.data_ptr(), x1.data_ptr(), mid.data_ptr(), out.data_ptr(), B, H, W, Hp, Wp, C, Fh,
         _build.stream_of(x)), "proj_ln_mlp_residual_grid")
     _build.launches["proj_ln_mlp_residual_grid"] += 1
+    return out
+
+
+def ln_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2):
+    """out = x + b2 + GELU(LN(x) . w1^T + b1) . w2^T over x [M, C]; LN with
+    fp32 statistics, LN(x) and the hidden rounded to x.dtype before their
+    products, the sum in fp32. Follows sam_road_tpu/ops/fused_ln.py::
+    _ln_mlp_kernel, whose wrapper rounds ln_scale, ln_bias, b1 and b2 to
+    x.dtype first."""
+    dt = x.dtype
+    h = layer_norm_f32(x, ln_scale, ln_bias, dt).to(dt)
+    mid = F.gelu(F.linear(h, w1.to(dt)).float() + b1.to(dt).float())
+    out = x.float() + b2.to(dt).float() + F.linear(mid.to(dt), w2.to(dt)).float()
+    return out.to(dt)
+
+
+def ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2):
+    """K9: LN + MLP + residual, [M, C] -> [M, C], w1 [4C, C], w2 [C, 4C].
+    K4's second and third launches over a bf16 x: the residual is x itself.
+    The Pallas tile / chunks are TPU block sizes and have no counterpart."""
+    if _build.on_cpu(x):
+        return ln_mlp_residual_plain(x, ln_scale, ln_bias, w1, b1, w2, b2)
+    M, C = x.shape
+    Fh = w1.shape[0]
+    bf = torch.bfloat16
+    _build.require(x, "x", bf)
+    for t, name, shape in ((ln_scale, "ln_scale", (C,)), (ln_bias, "ln_bias", (C,)),
+                           (w1, "w1", (Fh, C)), (b1, "b1", (Fh,)), (w2, "w2", (C, Fh)),
+                           (b2, "b2", (C,))):
+        _build.require(t, name, bf, shape)
+    if C % 128 or Fh % 128:
+        raise ValueError(f"ln_mlp_residual kernel needs C and hidden % 128 == 0, got {C}, {Fh}")
+    mid = torch.empty((M, Fh), dtype=bf, device=x.device)
+    out = torch.empty((M, C), dtype=bf, device=x.device)
+    _build.check(_build.kernels().samroad_ln_mlp_residual(
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), mid.data_ptr(), out.data_ptr(), M, C, Fh,
+        _build.stream_of(x)), "ln_mlp_residual")
+    _build.launches["ln_mlp_residual"] += 1
     return out
 
 

@@ -2,7 +2,8 @@
 the bench shapes (ViT-B at 512 px: C 768, 12 heads, 32x32 token grid,
 window 14), the K6 wrappers' forward and gradients at the training shapes
 (the same at batch 16), and the grid modes K7, K8 and K10 bit-equal to the
-kernels they vary (K1 + pad, K4 on the cropped input, K2), on an NVIDIA GPU.
+kernels they vary (K1 + pad, K4 on the cropped input, K2), and K9, K11, K12
+and K13 at the tools' shapes (groups bit-equal), on an NVIDIA GPU.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
 where torch sees no GPU. This file imports neither jax nor the JAX package,
@@ -228,3 +229,78 @@ def test_cuda_window_attention_modes_are_bit_equal_to_k2(cuda, mode, name):
     torch.cuda.synchronize()
     assert _build.launches[key] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_ln_mlp_residual_matches_plain(cuda):
+    """K9 (K4's last two launches over x) within 2e-2 (1 + |plain|) of its
+    plain version in fp32 on the same bf16 inputs; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, tail = _bench_case("proj_ln_mlp_residual", 4, cuda)
+    args = (tail[0],) + tail[4:]  # x, ln2, W1, b1, W2, b2
+    before = _build.launches["ln_mlp_residual"]
+    got = fused_ln.ln_mlp_residual(*args).float()
+    torch.cuda.synchronize()
+    assert _build.launches["ln_mlp_residual"] == before + 1
+    ref = fused_ln.ln_mlp_residual_plain(*[a.float() for a in args])
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() / (1 + ref.abs())).max().item() <= 2e-2
+
+
+def _window_layout_case(name, dev):
+    """(kernel taking group=, plain version, bf16 inputs) for K11-K13 at the
+    tools' shapes: 288 windows of 14 x 14 tokens, C 768, 12 heads."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    nW, N, win, heads, hd = 288, 196, 14, 12, 64
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    qkv = rn(nW, N, 3 * heads * hd)
+    tables = (rn(2 * win - 1, hd, scale=0.1), rn(2 * win - 1, hd, scale=0.1))
+    if name == "window_attention_rows":
+        return (lambda *a, group=1: fused_block.window_attention_rows(*a, win, heads, group=group),
+                lambda *a: fused_block.window_attention_rows_plain(*a, win, heads),
+                (qkv, rn(nW, heads, N, win), rn(nW, heads, N, win)))
+    if name == "window_attention_relpos":
+        return (lambda *a, group=1: fused_block.window_attention_relpos(*a, win, heads,
+                                                                        group=group),
+                lambda *a: fused_block.window_attention_relpos_plain(*a, win, heads),
+                (qkv,) + tables)
+    q, k, v = (t.contiguous() for t in qkv.reshape(nW, N, 3, heads, hd).permute(2, 0, 3, 1, 4))
+    return (lambda *a, group=1: fused_block.window_attention_relpos_batched(*a, win,
+                                                                           group=group),
+            lambda *a: fused_block.window_attention_relpos_batched_plain(*a, win),
+            (q, k, v) + tables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["window_attention_rows", "window_attention_relpos",
+                                  "window_attention_relpos_batched"])
+def test_cuda_window_layout_kernels_match_plain_at_every_group(cuda, name):
+    """K11, K12, K13: group 1 within 2e-2 (1 + |plain|) of the plain version
+    in fp32 on the same bf16 inputs; groups 2, 3 and 4 bit-equal to group 1;
+    one launch each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern, plain, args = _window_layout_case(name, cuda)
+    before = _build.launches[name]
+    got = kern(*args)
+    others = [kern(*args, group=g) for g in (2, 3, 4)]
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 4
+    assert all(torch.equal(o, got) for o in others)
+    ref = plain(*[a.float() for a in args])
+    assert torch.isfinite(got.float()).all()
+    assert ((got.float() - ref).abs() / (1 + ref.abs())).max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_relpos_batched_is_relpos_on_split_heads(cuda):
+    """K13 on head-split q, k, v equals K12 on the same tokens in window
+    layout within 2e-2 (1 + |K12|): the same function."""
+    _, _, (qkv, rh, rw) = _window_layout_case("window_attention_relpos", cuda)
+    k12 = fused_block.window_attention_relpos(qkv, rh, rw, 14, 12).float()
+    q, k, v = (t.contiguous() for t in qkv.reshape(288, 196, 3, 12, 64).permute(2, 0, 3, 1, 4))
+    k13 = fused_block.window_attention_relpos_batched(q, k, v, rh, rw, 14)
+    k13 = k13.permute(0, 2, 1, 3).reshape(288, 196, 768).float()
+    assert ((k13 - k12).abs() / (1 + k12.abs())).max().item() <= 2e-2

@@ -45,6 +45,7 @@ from sam_road_tpu_torch.models.convert import _torch_name, from_flax_params, loa
 from sam_road_tpu_torch.models.sam_road import SAMRoad
 from sam_road_tpu_torch.utils.viz import EDGE_BGR, NODE_BGR, visualize_image_and_graph
 from synthetic_data import make_spacenet_fixture
+from test_torch_engine import _load_jax_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(SAM_VERSION="vit_t", PATCH_SIZE=64, COMPUTE_DTYPE="float32", MAX_NEIGHBOR_QUERIES=4)
@@ -248,6 +249,9 @@ def _read_outputs(out_dir, test_ids):
 
 @pytest.fixture(scope="module")
 def jax_infer(fixture, tmp_path_factory):
+    """The JAX CLI's outputs, with its native NMS and kNN pairs loaded
+    (their scipy fallback breaks distance ties differently)."""
+    _load_jax_native()
     run = tmp_path_factory.mktemp("jax_infer")
     cwd = os.getcwd()
     os.chdir(run)
