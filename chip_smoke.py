@@ -10,8 +10,11 @@ K1-K4 under autograd), then checks K7, K8 and K10 (the PAD_FREE / WIN_*
 modes) bit-equal to K1, K4 and K2 and drives the inference CLI over two
 generated 2048 px tiles from a SAM-format checkpoint in each mode and the
 calibration CLI, then checks K9 and K11-K13 (the tools' kernels; groups
-bit-equal) and runs the kernel A/B and windowed-block profiling tools,
-showing that each path ran through its kernels. Every
+bit-equal) and runs the kernel A/B and windowed-block profiling tools, then
+checks K2, K3 and K10-K13 at vit_h's head_dim 80 and drives vit_h's fused
+encoder and a region through it, then checks the tools' own kernels T1-T4
+and runs their three tools, showing that each path ran through its
+kernels. Every
 kernel's time sits beside its bound (bytes or operations at the card's
 peak rates) and, where one PyTorch call computes the same function, that
 call's time.
@@ -132,6 +135,26 @@ TOOL_META = {  # phase 11 kernel -> (CUDA source, the TPU kernel it replaces)
 TOOL_SHAPES = dict(tokens=32 * 1024, dim=768, windows=32 * 9, win=14, heads=12)
 AB_LOOP = dict(iters=10, rounds=4)
 PROFILE_LOOP = dict(iters=20, rounds=5)
+# phase 12: vit_h at 256 px (configs/toponet_vith_256.yaml, full width and
+# depth, FUSED_ENCODER, batch 64, 16 patches per edge), head_dim 80
+VITH_CONFIG = "configs/toponet_vith_256.yaml"
+VITH_PER_BATCH = {"ln_dense": 32, "window_attention_rows_grid": 28, "attention_relpos_rows": 4,
+                  "proj_ln_mlp_residual": 32}
+# phase 13: the tools' own kernels (T1-T4) at their tools' shapes, and the
+# timing loops the three tools run with
+T_META = {  # kernel -> (CUDA source, the TPU kernel it replaces)
+    "diag_attn": ("sam_road_tpu_torch/csrc/relpos_attention.cu",
+                  "tools/experiment_group_window.py:102"),
+    "window_attn_kernel1": ("sam_road_tpu_torch/csrc/window_attention.cu",
+                            "tools/experiment_window_attn.py:76"),
+    "window_attn_grouped": ("sam_road_tpu_torch/csrc/window_attention.cu",
+                            "tools/experiment_window_attn.py:108"),
+    "sel_attention": ("sam_road_tpu_torch/csrc/window_attention.cu",
+                      "tools/experiment_relpos_kernel.py:85"),
+}
+GROUP_WINDOW_LOOP = dict(iters=10, rounds=4)
+WINDOW_ATTN_LOOP = dict(iters=30, reps=3)
+RELPOS_LOOP = dict(iters=20, reps=3)
 
 
 def phase(name):
@@ -206,6 +229,12 @@ def kernel_flops(name: str, args) -> float:
     if name.startswith("fused_attention"):  # q, k [B, heads, N, D], v [.., hd]
         q, v = args[0], args[2]
         return 2.0 * q.shape[0] * q.shape[1] * q.shape[2] ** 2 * (q.shape[3] + v.shape[3])
+    if name.startswith("window_attn_"):  # T2 / T3: q, k [BH, N, D], v [BH, N, dv]
+        q, v = args[0], args[2]
+        return 2.0 * q.shape[0] * q.shape[1] ** 2 * (q.shape[2] + v.shape[2])
+    if name == "sel_attention":  # T4: q, k, v [BH, N, hd]
+        q = args[0]
+        return 4.0 * q.shape[0] * q.shape[1] ** 2 * q.shape[2]
     raise KeyError(name)
 
 
@@ -237,6 +266,19 @@ def library_call(name: str, args, win: int = 14, heads: int = 12):
     if name.startswith("fused_attention"):
         q, k, v = args
         return lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
+    if name == "diag_attn":  # T1: K11's function, per window
+        return library_call("window_attention_rows", args, win, heads)
+    # T2-T4 as [1, BH, N, D]: SDPA's fused backends take only 4-D inputs (at
+    # T2's D 92, no multiple of 8, only its math path runs)
+    if name.startswith("window_attn_"):  # T2 / T3: q, k 92 wide, v 64
+        q, k, v = (t[None] for t in args)
+        return lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
+    if name == "sel_attention":  # T4: q pre-scaled, bias rows qh, qw
+        q, k, v, qh, qw = args
+        BH, N, _ = q.shape
+        mask = (qh[..., :, None] + qw[..., None, :]).reshape(1, BH, N, N).contiguous()
+        q, k, v = q[None], k[None], v[None]
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
     if name.startswith(("window_attention_rows", "window_attention_relpos")):  # K11-K13
         from sam_road_tpu_torch.ops.fused_block import _split_heads, expand_rel_pos
         if name.endswith("batched"):
@@ -254,15 +296,17 @@ def library_call(name: str, args, win: int = 14, heads: int = 12):
     return None
 
 
-def timing_row(name: str, args, out, kern, plain, fwd_bwd: bool = False) -> dict:
-    """ms (kernel), plain_ms, library_ms and the bound of one call."""
+def timing_row(name: str, args, out, kern, plain, fwd_bwd: bool = False, flops=None,
+               heads: int = 12) -> dict:
+    """ms (kernel), plain_ms, library_ms and the bound of one call; `flops`
+    where the operations do not follow from name and args alone (T1)."""
     import torch
 
     ms = cuda_ms(kern)
     plain_ms = cuda_ms(plain)
-    flops = kernel_flops(name, args)
+    flops = kernel_flops(name, args) if flops is None else flops
     moved = nbytes(*args) + nbytes(out)
-    lib = None if fwd_bwd else library_call(name, args)
+    lib = None if fwd_bwd else library_call(name, args, heads=heads)
     if fwd_bwd:  # + the gradient of every input, the cotangent read once
         flops, moved = 3 * flops, 2 * moved
     lib_ms = None
@@ -450,10 +494,11 @@ def check_encoder(seed: int, dev: str = "cuda"):
         raise SystemExit("fused encoder disagrees with the eager encoder")
 
 
-def run_engine(seed: int, overrides: dict, region: int, per_batch: dict, dev: str = "cuda"):
-    """Phases 5 and 8: a region through the engine; returns the launches of
-    the timed run, which must be `per_batch` launches of each kernel per
-    batch."""
+def run_engine(seed: int, overrides: dict, region: int, per_batch: dict, dev: str = "cuda",
+               model=None):
+    """Phases 5, 8 and 12: a region through the engine (`model`, or seeded
+    random weights); returns the launches of the timed run, which must be
+    `per_batch` launches of each kernel per batch."""
     from sam_road_tpu_torch.config import load_config
     from sam_road_tpu_torch.data.partitions import get_patch_info_one_img
     from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
@@ -461,7 +506,8 @@ def run_engine(seed: int, overrides: dict, region: int, per_batch: dict, dev: st
     from sam_road_tpu_torch.ops import _build
 
     cfg = load_config(overrides=overrides)
-    model = init_random(SAMRoad.from_config(cfg), seed)
+    if model is None:
+        model = init_random(SAMRoad.from_config(cfg), seed)
     img = np.random.default_rng(0).integers(0, 255, size=(region, region, 3), dtype=np.uint8)
     engine = TiledInferenceEngine(cfg, model, dev)
     # Warm run with thresholds above 1 (no vertices): at the default
@@ -1303,6 +1349,252 @@ def run_tools(dev: str = "cuda", shapes: dict = TOOL_SHAPES, profile_shapes: dic
     return launches
 
 
+def check_cases(cases: dict, heads: int, dev: str = "cuda") -> dict:
+    """Each case label -> (kernel name, kernel, plain, args, equal, flops):
+    kernel(*args) within TOL of plain on the args in fp32 and bit-equal to
+    every output of the callables in `equal`; its timing row (`flops` where
+    the name and args do not give them). Returns label -> row."""
+    import torch
+
+    results = {}
+    for label, (name, kern, plain, args, equal, flops) in cases.items():
+        got = kern(*args)
+        same = all(torch.equal(f(), got) for f in equal)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ref = plain(*[t.float() for t in args])
+        err = (got.float() - ref).abs()
+        max_abs, max_rel = err.max().item(), (err / (1 + ref.abs())).max().item()
+        del ref, err
+        row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args), flops=flops,
+                         heads=heads)
+        ok = same and max_rel <= TOL and bool(torch.isfinite(got.float()).all())
+        print(f"kernel {label}: shape {tuple(got.shape)} bit-equal to {len(equal)} other "
+              f"call(s) {same} max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} (tol {TOL}) "
+              f"{fmt_times(row)} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"kernel {label} disagrees with its plain version or its variants")
+        results[label] = dict(max_abs_err=max_abs, **row)
+        del got
+    return results
+
+
+def check_vith_kernels(B: int, dev: str = "cuda"):
+    """Phase 12a: K2, K10 (rolled, G 4), K3 and K11-K13 at vit_h's head_dim
+    80, at its 256 px shapes (C 1280, 16 heads; B patches of a 16x16 grid
+    padded to 28x28, 4 windows of 14 x 14 each; 256 global tokens): each
+    within TOL of its plain version in fp32, K10 bit-equal to K2, K11-K13
+    groups 2 and 4 bit-equal to 1."""
+    import torch
+
+    from sam_road_tpu_torch.ops import attention, fused_block
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    C, heads, grid, win, gp = 1280, 16, 16, 14, 28
+    hd, nw, N = C // heads, gp // win, win * win
+    qkv_grid = torch.zeros((B, gp, gp, 3 * C), dtype=bf, device=dev)
+    qkv_grid[:, :grid, :grid] = rn(B, grid, grid, 3 * C)
+    rows = (B, nw, nw, heads, N, win)
+    win_args = (qkv_grid, rn(3 * C, scale=0.5), rn(*rows), rn(*rows))
+    nG = grid * grid
+    g_args = ((rn(B, heads, nG, hd).float() * hd ** -0.5).to(bf), rn(B, heads, nG, hd),
+              rn(B, heads, nG, hd), rn(B, heads, nG, grid), rn(B, heads, nG, grid))
+    nW = B * nw * nw
+    qkv = rn(nW, N, 3 * C)
+    tables = (rn(2 * win - 1, hd, scale=0.1), rn(2 * win - 1, hd, scale=0.1))
+    split = tuple(t.contiguous() for t in fused_block._split_heads(qkv, heads))
+
+    def k2(*a, **mode):
+        return fused_block.window_attention_rows_grid(*a, win, heads, **mode)
+
+    def grid_plain(*a):
+        return fused_block.window_attention_rows_grid_plain(*a, win, heads)
+
+    def layout(kern, plain, args):  # K11-K13: groups 2 and 4 bit-equal to 1
+        return kern, plain, args, [lambda g=g: kern(*args, group=g) for g in (2, 4)]
+
+    cases = {  # name -> (kernel, plain, inputs, calls the kernel's output equals)
+        "window_attention_rows_grid": (k2, grid_plain, win_args, []),
+        "window_attention_rows_grid_rolled": (lambda *a: k2(*a, rolled_rows=True), grid_plain,
+                                              win_args, [lambda: k2(*win_args)]),
+        "window_attention_rows_grid_gbatch": (lambda *a: k2(*a, group_batch=4), grid_plain,
+                                              win_args, [lambda: k2(*win_args)]),
+        "attention_relpos_rows": (
+            lambda *a: attention.attention_relpos_rows(*a, (grid, grid)),
+            lambda *a: attention.attention_relpos_rows_plain(*a, (grid, grid)), g_args, []),
+        "window_attention_rows": layout(
+            lambda *a, group=1: fused_block.window_attention_rows(*a, win, heads, group=group),
+            lambda *a: fused_block.window_attention_rows_plain(*a, win, heads),
+            (qkv, rn(nW, heads, N, win), rn(nW, heads, N, win))),
+        "window_attention_relpos": layout(
+            lambda *a, group=1: fused_block.window_attention_relpos(*a, win, heads, group=group),
+            lambda *a: fused_block.window_attention_relpos_plain(*a, win, heads),
+            (qkv,) + tables),
+        "window_attention_relpos_batched": layout(
+            lambda *a, group=1: fused_block.window_attention_relpos_batched(*a, win, group=group),
+            lambda *a: fused_block.window_attention_relpos_batched_plain(*a, win),
+            split + tables),
+    }
+    return check_cases({name: (name, *case, None) for name, case in cases.items()}, heads, dev)
+
+
+def vith_overrides() -> dict:
+    """configs/toponet_vith_256.yaml's keys, as load_config overrides."""
+    from sam_road_tpu_torch.config import read_flat_yaml
+
+    return read_flat_yaml(VITH_CONFIG)
+
+
+def check_vith_encoder(model, dev: str = "cuda", n: int = 4):
+    """Phase 12b: vit_h's fused encoder (K1-K4 at head_dim 80, bf16) against
+    its eager encoder through K5 (use_flash, bf16, D 80 + 28 in the windows
+    and 80 + 32 in the global blocks) and against the eager encoder in fp32
+    plain ops, on n random 256 px patches: every cosine >= COS_MIN; one
+    fused forward launches K1 32, K2 28, K3 4, K4 32 times, one eager
+    forward K5 32 times."""
+    import torch
+    import torch.nn.functional as F
+
+    from sam_road_tpu_torch.models.fast_encoder import encoder_forward_fused
+    from sam_road_tpu_torch.models.sam_road import PIXEL_MEAN, PIXEL_STD
+    from sam_road_tpu_torch.ops import _build
+
+    model = model.to(dev).eval()
+    enc = model.image_encoder
+    gen = torch.Generator(device=dev).manual_seed(19)
+    p = enc.img_size
+    rgb = torch.randint(0, 255, (n, p, p, 3), generator=gen, device=dev)
+    attns = [blk.attn for blk in enc.blocks]
+    flash, dtype = [a.use_flash for a in attns], enc.dtype
+    launches = {}
+    try:
+        with torch.no_grad():
+            _build.reset_launches()
+            fused = encoder_forward_fused(enc, model.normalize(rgb)).float()
+            launches["fused"] = dict(_build.launches)
+            for a in attns:
+                a.use_flash = True
+            _build.reset_launches()
+            eager = enc(model.normalize(rgb)).float()
+            launches["eager"] = dict(_build.launches)
+            for a in attns:
+                a.use_flash = False
+            enc.dtype = torch.float32
+            mean = torch.tensor(PIXEL_MEAN, device=dev)
+            exact = enc((rgb.float() - mean) / torch.tensor(PIXEL_STD, device=dev)).float()
+    finally:
+        for a, f in zip(attns, flash):
+            a.use_flash = f
+        enc.dtype = dtype
+    cos = {name: F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+           for name, a, b in (("fused vs eager K5", fused, eager), ("fused vs fp32", fused, exact),
+                              ("eager K5 vs fp32", eager, exact))}
+    want = {"fused": dict(VITH_PER_BATCH), "eager": {"fused_attention": len(attns)}}
+    if dev != "cuda":
+        want = {"fused": {}, "eager": {}}  # the plain versions launch nothing
+    ok = (all(c >= COS_MIN for c in cos.values()) and launches == want
+          and all(bool(torch.isfinite(t).all()) for t in (fused, eager)))
+    print(f"vit_h encoder, {n} patches of {p} px, shape {tuple(fused.shape)}: cosine "
+          + ", ".join(f"{k} {v:.6f}" for k, v in cos.items()) + f" (min {COS_MIN}); "
+          f"launches {launches} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"vit_h's fused encoder disagrees with its eager encoder: {launches}")
+    return cos
+
+
+def check_t_kernels(dev: str = "cuda", windows: int = 32 * 9, win: int = 14, dim: int = 768,
+                    heads: int = 12, groups=(2, 4, 8), folded_groups=(4, 16)):
+    """Phase 13a: the tools' kernels at their tools' shapes against their
+    plain versions in fp32: T1 on 288 windows of 14 x 14 (C 768, 12 heads)
+    at g = 2, 4, 8; T2 over the (window, head) pairs of those windows
+    (3456 x 196, q/k 92 wide, v 64) and T3 at G 4 and 16, each bit-equal to
+    T2; T4 over the same pairs (q, k, v 64 wide, bias rows 14 wide). SDPA
+    as the library call: per window with the bias as attn_mask (T1, T4),
+    unscaled on the folded q and k (T2, T3)."""
+    import torch
+
+    from sam_road_tpu_torch.tools import (
+        experiment_group_window as gw,
+        experiment_relpos_kernel as rk,
+        experiment_window_attn as wa,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    N, hd = win * win, dim // heads
+    BH = windows * heads
+    qkv = rn(windows, N, 3 * dim)
+    rows = (rn(windows, heads, N, win), rn(windows, heads, N, win))
+    folded = (rn(BH, N, hd + 2 * win, scale=0.3), rn(BH, N, hd + 2 * win, scale=0.3),
+              rn(BH, N, hd))
+    sel = (rn(BH, N, hd, scale=hd ** -0.5), rn(BH, N, hd), rn(BH, N, hd), rn(BH, N, win),
+           rn(BH, N, win))
+    cases = {}
+    for g in groups:
+        cases[f"diag_attn g{g}"] = (
+            "diag_attn", lambda *a, g=g: gw.diag_attn(*a, g), lambda *a, g=g: gw.diag_attn_plain(
+                *a, g), (qkv,) + rows, [], 4.0 * windows * heads * g * N * N * hd)
+    cases["window_attn_kernel1"] = ("window_attn_kernel1", wa.window_attn_kernel1,
+                                     wa.window_attn_plain, folded, [], None)
+    for G in folded_groups:
+        cases[f"window_attn_grouped G{G}"] = (
+            "window_attn_grouped", lambda *a, G=G: wa.window_attn_grouped(*a, G),
+            lambda *a, G=G: wa.window_attn_grouped_plain(*a, G), folded,
+            [lambda: wa.window_attn_kernel1(*folded)], None)
+    cases["sel_attention"] = ("sel_attention", rk.sel_attention, rk.sel_attention_plain, sel, [],
+                              None)
+    return check_cases(cases, heads, dev)
+
+
+def run_t_tools(dev: str = "cuda", group_window: dict | None = None,
+                window_attn: dict | None = None, relpos: dict | None = None):
+    """Phase 13b: the three tools that carry T1-T4, in process, at their
+    shapes (or the geometries given, to rehearse on the CPU): every
+    variant's reldiff (T1) or L1 (T2-T4, against the plain formulation's)
+    within 1e-2, every launch count exact; returns the launches."""
+    from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.tools import (
+        experiment_group_window as gw,
+        experiment_relpos_kernel as rk,
+        experiment_window_attn as wa,
+    )
+
+    _build.reset_launches()
+    res_gw = gw.main(gw.GROUPS, dev, **(group_window or {}), **GROUP_WINDOW_LOOP)
+    res_wa = wa.main(dev, **(window_attn or {}), **WINDOW_ATTN_LOOP)
+    res_rk = rk.main(dev, **(relpos or {}), **RELPOS_LOOP)
+    launches = dict(_build.launches)
+    per_gw = 1 + GROUP_WINDOW_LOOP["iters"] * GROUP_WINDOW_LOOP["rounds"]
+    per_wa = 1 + WINDOW_ATTN_LOOP["iters"] * WINDOW_ATTN_LOOP["reps"]
+    per_rk = 1 + RELPOS_LOOP["iters"] * RELPOS_LOOP["reps"]
+    want = {  # K11 is the T1 tool's reference (one more call); K5 is v0_current's attention
+        "window_attention_rows": 1 + per_gw, "diag_attn": len(gw.GROUPS) * per_gw,
+        "window_attn_kernel1": per_wa, "window_attn_grouped": len(wa.GROUPS) * per_wa,
+        "fused_attention": per_rk, "sel_attention": per_rk}
+    if dev != "cuda":
+        want = {}  # the plain versions launch nothing
+    rel = {k: v for k, v in res_gw.items() if k.endswith("_reldiff")}
+    ratios = {k: res[f"{k}_l1"] / res[f"{p}_l1"]
+              for res, pairs in ((res_wa, wa.PAIRS), (res_rk, rk.PAIRS)) for k, p in pairs.items()}
+    print(f"tools T1-T4: launches {launches}; T1 reldiff against K11 {rel}; L1 over the plain "
+          f"counterpart's {ratios}", flush=True)
+    if launches != want:
+        raise SystemExit(f"tools T1-T4 launches {launches}, expected {want}")
+    if not all(r <= 1e-2 for r in rel.values()) or not all(
+            abs(r - 1) <= 1e-2 for r in ratios.values()):
+        raise SystemExit(f"a tool variant is off its reference: {rel} {ratios}")
+    return launches
+
+
 def main():
     phase("1 device")
     import torch
@@ -1374,19 +1666,51 @@ def main():
     tool_launches = run_tools()
     print(f"phase 11 took {time.time() - t:.1f} s", flush=True)
 
+    phase("12 vit_h (head_dim 80): K2, K3, K10-K13, the fused encoder and a region")
+    t = time.time()
+    from sam_road_tpu_torch.config import load_config
+    from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
+
+    vith_cfg = vith_overrides()
+    vith = check_vith_kernels(int(vith_cfg["INFER_BATCH_SIZE"]))
+    vith_model = init_random(SAMRoad.from_config(load_config(overrides=vith_cfg)), SEED)
+    check_vith_encoder(vith_model)
+    vith_launches = run_engine(SEED, vith_cfg, REGION, VITH_PER_BATCH, model=vith_model)
+    del vith_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12 took {time.time() - t:.1f} s", flush=True)
+
+    phase("13 the tools' kernels T1-T4 and their three tools")
+    t = time.time()
+    t_rows = check_t_kernels()
+    t_launches = run_t_tools()
+    print(f"phase 13 took {time.time() - t:.1f} s", flush=True)
+
     kernels = []
+    def vith_fields(name):  # phase 12's head_dim 80 reading and vit_h region launches
+        extra = {"head_dim_80": vith[name]} if name in vith else {}
+        if name in vith_launches:
+            extra["vith_region_launches"] = vith_launches[name]
+        return extra
+
     for name, (src, replaces) in KERNEL_META.items():
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=launches[name], **results[name]))
+                            launches=launches[name], **results[name], **vith_fields(name)))
     for name, (kernel, src, replaces) in K6_META.items():  # K6: forward and backward
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=k6_launches[name], forward_kernel=kernel, **k6[name]))
     for name, (src, replaces) in K10_META.items():  # K7, K8, K10
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=grid_launches[name], **grid[name]))
+                            launches=grid_launches[name], **grid[name], **vith_fields(name)))
     for name, (src, replaces) in TOOL_META.items():  # K9, K11, K12, K13
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=tool_launches[name], **tool[name]))
+                            launches=tool_launches[name], **tool[name], **vith_fields(name)))
+    for name, (src, replaces) in T_META.items():  # T1-T4: the first variant, each in `variants`
+        rows = {label: row for label, row in t_rows.items() if label.split()[0] == name}
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                            launches=t_launches[name], **next(iter(rows.values())),
+                            variants=rows))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

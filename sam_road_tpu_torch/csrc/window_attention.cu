@@ -1,7 +1,9 @@
 // Windowed multi-head attention with SAM's decomposed rel-pos bias: the CUDA
 // kernels behind K2 / K10 (window_attention_rows_grid) and K11-K13
 // (window_attention_rows, window_attention_relpos,
-// window_attention_relpos_batched) of sam_road_tpu_torch/ops/fused_block.py.
+// window_attention_relpos_batched) of sam_road_tpu_torch/ops/fused_block.py,
+// and the tools' T2 / T3 (experiment_window_attn.py) and T4
+// (experiment_relpos_kernel.py) of sam_road_tpu_torch/tools.
 //
 // K2 replaces sam_road_tpu/ops/fused_block.py::window_attention_rows_grid at
 // its default granularity (_window_attn_rows_grid_kernel + _win_attn_body).
@@ -22,7 +24,16 @@
 //   p = exp(s - max), l = sum p,  out = (bf16(p) . v) / l
 // the score strip never leaves shared memory (a full 196 x 196 fp32 score
 // tile would be 154 KB). Products use nvcuda::wmma bf16 fragments with fp32
-// accumulation.
+// accumulation. The scale is a post-product fp32 multiply, the JAX body's
+// non-merged branch, which is exact for every head_dim; at a power of two
+// it equals the merged branch's pre-scaled q bit for bit.
+//
+// Head dims: the per-window body is attend<DQK, DV, BIAS, NORM_FIRST>, with
+// the q/k and the v widths as template parameters. Every window kernel is
+// instantiated at head_dim 64 (ViT-B, vit_l) and 80 (vit_h: 1280 / 16); at
+// 80 the q/k/v rows are 88 bf16 apart in shared memory (16-byte rows), and
+// the layout takes 192 KB (216 KB with K12 / K13's fp32 bias rows) of the
+// 227 KB a block may use. Another head_dim has no instance and is refused.
 //
 // K10: the rolled_rows / group_batch granularities of the same function
 // (_window_attn_rows_grid_rolled_kernel, _window_attn_rows_grid_gbatch_kernel)
@@ -60,6 +71,22 @@
 // then p.v (K2 divides after the product, so K11 equals K2 only within bf16
 // rounding). `group` windows a block, the block looping over them, is the
 // JAX kernels' windows-per-program and gives bit-equal outputs.
+//
+// The tools' kernels, two more modes of the same body:
+//   T2 / T3 (replace tools/experiment_window_attn.py::pallas1 / pallasG,
+//       kern1 / kernG): softmax(q.k^T) v over q, k [BH, N, 92] (the rel-pos
+//       folded into the contraction) and v [BH, N, 64], no bias, no scale,
+//       p unnormalised in bf16 and the division after p.v, as K2. The 92
+//       columns are zero-padded to 96 in shared memory (the wmma depth is
+//       16), and a 184-byte global row is only 8-byte aligned, so q and k
+//       load in 8-byte pieces. G windows a block (T3) loop as K11's group
+//       does, so every G gives T2's output to the bit.
+//   T4 (replaces tools/experiment_relpos_kernel.py::sel_attention,
+//       sel_kernel): K13's head-split addressing with K11's bias rows read,
+//       p normalised first, scale 1 (q arrives pre-scaled): q, k, v
+//       [BH, N, hd], qh, qw [BH, N, win] -> [BH, N, hd].
+// Bound like K11: their HBM bounds are 0.11-0.13 ms at 3456 (window, head)
+// pairs, against about 40 GFLOP.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,34 +94,41 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int HD = 64;             // head dim the kernel is written for
-constexpr int LDQ = HD + 8;        // smem row stride of q/k/v (bf16)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr size_t SMEM_MAX = 232448;  // a block's dynamic shared memory on Hopper
+constexpr int FOLD_DQK = 96;         // T2 / T3: the folded q/k width, padded in shared memory
+constexpr int FOLD_DV = 64;          // T2 / T3: the value width
+
+enum Bias { BIAS_NONE = 0, BIAS_ROWS = 1, BIAS_TABLE = 2 };
+
+__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~(size_t)127; }
 
 struct Layout {  // dynamic shared memory carve-up, byte offsets
   int np, lds, ldp;
   size_t q, k, v, table, warp0, warp_bytes, s_off, p_off, l_off, total;
+  // q/k rows dqk wide, v rows dv wide (each + 8 bf16 of row padding);
   // table_win > 0 reserves fp32 bias rows [np, 2 * table_win] (K12, K13).
-  __host__ __device__ Layout(int N, int table_win = 0) {
+  __host__ __device__ Layout(int N, int dqk, int dv, int table_win = 0) {
     np = (N + 15) & ~15;
-    lds = np + 4;   // fp32 score row stride (multiple of 4)
-    ldp = np + 8;   // bf16 probability row stride (multiple of 8)
-    const size_t qkv = (size_t)np * LDQ * sizeof(bf16);
+    lds = (np > dv ? np : dv) + 4;  // fp32 row stride: np scores, then dv outputs
+    ldp = np + 8;                   // bf16 probability row stride (multiple of 8)
+    const size_t qk = (size_t)np * (dqk + 8) * sizeof(bf16);
     q = 0;
-    k = qkv;
-    v = 2 * qkv;
-    table = 3 * qkv;
-    warp0 = table + (((size_t)np * 2 * table_win * sizeof(float) + 127) & ~(size_t)127);
+    k = qk;
+    v = 2 * qk;
+    table = v + (size_t)np * (dv + 8) * sizeof(bf16);
+    warp0 = table + align128((size_t)np * 2 * table_win * sizeof(float));
     s_off = 0;
-    p_off = (16 * lds * sizeof(float) + 127) & ~(size_t)127;
-    l_off = p_off + ((16 * ldp * sizeof(bf16) + 127) & ~(size_t)127);
+    p_off = align128(16 * lds * sizeof(float));
+    l_off = p_off + align128(16 * ldp * sizeof(bf16));
     warp_bytes = l_off + 128;
     total = warp0 + WARPS * warp_bytes;
   }
@@ -103,21 +137,25 @@ struct Layout {  // dynamic shared memory carve-up, byte offsets
 enum Mode { MODE_WINDOW = 0, MODE_ROLLED = 1, MODE_GBATCH = 2 };
 
 // Where one (window, head)'s tokens, bias rows and output live. Token
-// n = (i, j) of the window sits at element i * row + j * col from q / k / v
-// (channel 0 of this head) and from out.
+// n = (i, j) of the window sits at element i * row + j * col from q / k
+// (in_*), v (in_*, or v_* where its width differs: T2 / T3) and out
+// (out_*), channel 0 of this head.
 struct Tile {
   const bf16 *q, *k, *v;
   bf16* out;
-  int64_t in_row, in_col, out_row, out_col;
-  const bf16 *bh, *bw;    // bias rows [N, win] (K2, K11) or expanded tables [N, win, HD] (K12, K13)
+  int64_t in_row, in_col, v_row, v_col, out_row, out_col;
+  const bf16 *bh, *bw;    // bias rows [N, win] (K2, K11, T4), expanded tables [N, win, hd]
+                          // (K12, K13), or null
   const bf16* qkv_bias;   // this head's q bias, k's at +C and v's at +2C (K2), or null
   int C;
+  int dqk;                // T2 / T3: the q/k width in memory, a multiple of 4 up to FOLD_DQK
 };
 
-__device__ __forceinline__ float dot_bf16x64(const bf16* a, const bf16* b) {
+template <int D>
+__device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
   float acc = 0.f;
 #pragma unroll
-  for (int c = 0; c < HD; c += 8) {
+  for (int c = 0; c < D; c += 8) {
     const uint4 ua = *reinterpret_cast<const uint4*>(a + c);
     const uint4 ub = *reinterpret_cast<const uint4*>(b + c);
     const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&ua);
@@ -132,58 +170,85 @@ __device__ __forceinline__ float dot_bf16x64(const bf16* a, const bf16* b) {
   return acc;
 }
 
-// Attention of one (window, head) with the whole block. TABLE: the bias rows
-// are built here from the expanded tables; NORM_FIRST: p is normalised
-// before p.v (K11-K13), else after (K2).
-template <bool TABLE, bool NORM_FIRST>
+// Rows [0, np) x [0, D) of a shared-memory operand (row stride D + 8) from
+// the window's tokens, VEC bf16 a load (8: 16 bytes; 4: 8 bytes); columns
+// from dmem on and rows N..np-1 are zero (T2 / T3).
+template <int D, int VEC>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t row, int64_t col,
+                                          int N, int np, int win, int dmem) {
+  typedef typename std::conditional<VEC == 8, uint4, uint2>::type Vec;
+  for (int e = threadIdx.x; e < np * (D / VEC); e += THREADS) {
+    const int n = e / (D / VEC), c = (e % (D / VEC)) * VEC;
+    Vec u = Vec{};
+    if (n < N && c < dmem)
+      u = *reinterpret_cast<const Vec*>(src + (n / win) * row + (n % win) * col + c);
+    *reinterpret_cast<Vec*>(dst + n * (D + 8) + c) = u;
+  }
+}
+
+// Attention of one (window, head) with the whole block. DQK / DV: the q/k
+// and v widths in shared memory; BIAS: none (T2 / T3), bias rows read (K2,
+// K11, T4) or built here from the expanded tables (K12, K13); NORM_FIRST: p
+// is normalised before p.v (K11-K13, T4), else after (K2, T2 / T3).
+template <int DQK, int DV, int BIAS, bool NORM_FIRST>
 __device__ __forceinline__ void attend(const Tile& t, unsigned char* smem, const Layout& L,
                                        int win, float scale) {
+  constexpr int LDQK = DQK + 8, LDV = DV + 8;
   const int N = win * win;
-  bf16 (*Qs)[LDQ] = reinterpret_cast<bf16 (*)[LDQ]>(smem + L.q);
-  bf16 (*Ks)[LDQ] = reinterpret_cast<bf16 (*)[LDQ]>(smem + L.k);
-  bf16 (*Vs)[LDQ] = reinterpret_cast<bf16 (*)[LDQ]>(smem + L.v);
+  bf16 (*Qs)[LDQK] = reinterpret_cast<bf16 (*)[LDQK]>(smem + L.q);
+  bf16 (*Ks)[LDQK] = reinterpret_cast<bf16 (*)[LDQK]>(smem + L.k);
+  bf16 (*Vs)[LDV] = reinterpret_cast<bf16 (*)[LDV]>(smem + L.v);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // q/k/v of this (window, head), the qkv bias (if any) added to every token
-  // (pad tokens included); rows N..Np-1 are zero.
-  for (int e = tid; e < L.np * (HD / 8); e += THREADS) {
-    const int n = e / (HD / 8), c = (e % (HD / 8)) * 8;
-    uint4 vals[3];
-    if (n < N) {
-      const int64_t off = (n / win) * t.in_row + (n % win) * t.in_col + c;
-      const bf16* src[3] = {t.q, t.k, t.v};
+  if constexpr (DQK == DV) {
+    // q/k/v of this (window, head), a 16-byte chunk of each per step (three
+    // loads in flight), the qkv bias (if any) added to every token (pad
+    // tokens included); rows N..Np-1 are zero. v shares q's strides.
+    for (int e = tid; e < L.np * (DQK / 8); e += THREADS) {
+      const int n = e / (DQK / 8), c = (e % (DQK / 8)) * 8;
+      uint4 vals[3];
+      if (n < N) {
+        const int64_t off = (n / win) * t.in_row + (n % win) * t.in_col + c;
+        const bf16* src[3] = {t.q, t.k, t.v};
 #pragma unroll
-      for (int p = 0; p < 3; ++p) {
-        uint4 u = *reinterpret_cast<const uint4*>(src[p] + off);
-        if (t.qkv_bias) {
-          const uint4 bu = *reinterpret_cast<const uint4*>(t.qkv_bias + p * t.C + c);
-          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-          const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&bu);
+        for (int p = 0; p < 3; ++p) {
+          uint4 u = *reinterpret_cast<const uint4*>(src[p] + off);
+          if (t.qkv_bias) {
+            const uint4 bu = *reinterpret_cast<const uint4*>(t.qkv_bias + p * t.C + c);
+            __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+            const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&bu);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 x = __bfloat1622float2(h[i]), y = __bfloat1622float2(hb[i]);
-            h[i] = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
+            for (int i = 0; i < 4; ++i) {
+              const float2 x = __bfloat1622float2(h[i]), y = __bfloat1622float2(hb[i]);
+              h[i] = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
+            }
           }
+          vals[p] = u;
         }
-        vals[p] = u;
+      } else {
+        vals[0] = vals[1] = vals[2] = make_uint4(0u, 0u, 0u, 0u);
       }
-    } else {
-      vals[0] = vals[1] = vals[2] = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(&Qs[n][c]) = vals[0];
+      *reinterpret_cast<uint4*>(&Ks[n][c]) = vals[1];
+      *reinterpret_cast<uint4*>(&Vs[n][c]) = vals[2];
     }
-    *reinterpret_cast<uint4*>(&Qs[n][c]) = vals[0];
-    *reinterpret_cast<uint4*>(&Ks[n][c]) = vals[1];
-    *reinterpret_cast<uint4*>(&Vs[n][c]) = vals[2];
+  } else {
+    // T2 / T3: q/k rows t.dqk wide in memory (8-byte aligned), zero-padded
+    // to DQK; v rows DV wide at their own strides
+    load_rows<DQK, 4>(&Qs[0][0], t.q, t.in_row, t.in_col, N, L.np, win, t.dqk);
+    load_rows<DQK, 4>(&Ks[0][0], t.k, t.in_row, t.in_col, N, L.np, win, t.dqk);
+    load_rows<DV, 8>(&Vs[0][0], t.v, t.v_row, t.v_col, N, L.np, win, DV);
   }
   __syncthreads();
 
   // K12 / K13: bias rows [n][0, win) = q[n] . rh[n, a], [n][win, 2 win) =
   // q[n] . rw[n, a], fp32, one (n, a) a thread.
   float* table = reinterpret_cast<float*>(smem + L.table);
-  if constexpr (TABLE) {
+  if constexpr (BIAS == BIAS_TABLE) {
     for (int e = tid; e < N * 2 * win; e += THREADS) {
       const int n = e / (2 * win), a = e % (2 * win);
-      const bf16* r = a < win ? t.bh + ((int64_t)n * win + a) * HD
-                              : t.bw + ((int64_t)n * win + a - win) * HD;
-      table[e] = dot_bf16x64(&Qs[n][0], r);
+      const bf16* r = a < win ? t.bh + ((int64_t)n * win + a) * DQK
+                              : t.bw + ((int64_t)n * win + a - win) * DQK;
+      table[e] = dot_bf16<DQK>(&Qs[n][0], r);
     }
     __syncthreads();
   }
@@ -201,11 +266,11 @@ __device__ __forceinline__ void attend(const Tile& t, unsigned char* smem, const
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int d = 0; d < HD; d += 16) {
+      for (int d = 0; d < DQK; d += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, &Qs[r0][d], LDQ);
-        wmma::load_matrix_sync(fb, &Ks[kb * 16][d], LDQ);
+        wmma::load_matrix_sync(fa, &Qs[r0][d], LDQK);
+        wmma::load_matrix_sync(fb, &Ks[kb * 16][d], LDQK);
         wmma::mma_sync(acc, fa, fb, acc);
       }
       wmma::store_matrix_sync(S + kb * 16, acc, L.lds, wmma::mem_row_major);
@@ -222,9 +287,9 @@ __device__ __forceinline__ void attend(const Tile& t, unsigned char* smem, const
         if (m < N) {
           s = srow[m] * scale;
           if (n < N) {
-            if constexpr (TABLE)
+            if constexpr (BIAS == BIAS_TABLE)
               s += table[nb * 2 * win + m / win] + table[nb * 2 * win + win + m % win];
-            else
+            else if constexpr (BIAS == BIAS_ROWS)
               s += __bfloat162float(t.bh[nb * win + m / win]) +
                    __bfloat162float(t.bw[nb * win + m % win]);
           }
@@ -254,21 +319,21 @@ __device__ __forceinline__ void attend(const Tile& t, unsigned char* smem, const
     __syncwarp();
     // p . v (then / l unless p was normalised)
 #pragma unroll
-    for (int d = 0; d < HD; d += 16) {
+    for (int d = 0; d < DV; d += 16) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
       for (int kb = 0; kb < L.np / 16; ++kb) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
         wmma::load_matrix_sync(fa, P + kb * 16, L.ldp);
-        wmma::load_matrix_sync(fb, &Vs[kb * 16][d], LDQ);
+        wmma::load_matrix_sync(fb, &Vs[kb * 16][d], LDV);
         wmma::mma_sync(acc, fa, fb, acc);
       }
       wmma::store_matrix_sync(S + d, acc, L.lds, wmma::mem_row_major);
     }
     __syncwarp();
-    for (int e = lane; e < 16 * HD; e += 32) {
-      const int r = e / HD, d = e % HD;
+    for (int e = lane; e < 16 * DV; e += 32) {
+      const int r = e / DV, d = e % DV;
       const int n = r0 + r;
       if (n < N) {
         const float o = NORM_FIRST ? S[r * L.lds + d] : S[r * L.lds + d] / lsum[r];
@@ -280,6 +345,7 @@ __device__ __forceinline__ void attend(const Tile& t, unsigned char* smem, const
 }
 
 // K2 / K10: image b, window (wi, wj), head of the padded grid.
+template <int HD>
 __device__ __forceinline__ void attend_grid(const bf16* qkv, const bf16* qkv_bias, const bf16* bh,
                                             const bf16* bw, bf16* out, unsigned char* smem,
                                             const Layout& L, int b, int wi, int wj, int head,
@@ -302,17 +368,17 @@ __device__ __forceinline__ void attend_grid(const bf16* qkv, const bf16* qkv_bia
   t.bw = bw + rows;
   t.qkv_bias = qkv_bias + head * HD;
   t.C = C;
-  attend<false, false>(t, smem, L, win, scale);
+  attend<HD, HD, BIAS_ROWS, false>(t, smem, L, win, scale);
 }
 
-template <int MODE>
+template <int MODE, int HD>
 __global__ void __launch_bounds__(THREADS)
 window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ qkv_bias,
                         const bf16* __restrict__ bh, const bf16* __restrict__ bw,
                         bf16* __restrict__ out, int Hp, int Wp, int C, int heads,
                         int win, int G, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(win * win);
+  const Layout L(win * win, HD, HD);
   const int nI = Hp / win, nJ = Wp / win;
   int idx = blockIdx.x;
   const int head = idx % heads; idx /= heads;
@@ -320,8 +386,8 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ q
     const int wi = idx % nI, b = idx / nI;
     for (int wj = 0; wj < nJ; ++wj) {
       if (wj) __syncthreads();  // the previous window's q/k/v are consumed
-      attend_grid(qkv, qkv_bias, bh, bw, out, smem, L, b, wi, wj, head, Hp, Wp, C, heads, win,
-                  scale);
+      attend_grid<HD>(qkv, qkv_bias, bh, bw, out, smem, L, b, wi, wj, head, Hp, Wp, C, heads,
+                      win, scale);
     }
   } else {
     const int wj = idx % nJ; idx /= nJ;
@@ -330,27 +396,27 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ q
     if constexpr (MODE == MODE_GBATCH) {
       for (int g = 0; g < G; ++g) {
         if (g) __syncthreads();
-        attend_grid(qkv, qkv_bias, bh, bw, out, smem, L, b0 * G + g, wi, wj, head, Hp, Wp, C,
-                    heads, win, scale);
+        attend_grid<HD>(qkv, qkv_bias, bh, bw, out, smem, L, b0 * G + g, wi, wj, head, Hp, Wp,
+                        C, heads, win, scale);
       }
     } else {
-      attend_grid(qkv, qkv_bias, bh, bw, out, smem, L, b0, wi, wj, head, Hp, Wp, C, heads, win,
-                  scale);
+      attend_grid<HD>(qkv, qkv_bias, bh, bw, out, smem, L, b0, wi, wj, head, Hp, Wp, C, heads,
+                      win, scale);
     }
   }
 }
 
-// K11 (TABLE false), K12 (TABLE true) on the window layout, K13 (HEADSPLIT)
-// on head-split tensors: one block per (group of G windows, head), looping
-// over the group's windows.
-template <bool HEADSPLIT, bool TABLE>
+// K11 (BIAS_ROWS), K12 (BIAS_TABLE) on the window layout, K13 (HEADSPLIT,
+// BIAS_TABLE) and T4 (HEADSPLIT, BIAS_ROWS, one head) on head-split tensors:
+// one block per (group of G windows, head), looping over the group's windows.
+template <bool HEADSPLIT, int BIAS, int HD>
 __global__ void __launch_bounds__(THREADS)
 window_layout_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ bh,
                      const bf16* __restrict__ bw, bf16* __restrict__ out, int C, int heads,
                      int win, int G, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(win * win, TABLE ? win : 0);
+  const Layout L(win * win, HD, HD, BIAS == BIAS_TABLE ? win : 0);
   const int N = win * win;
   const int head = blockIdx.x % heads;
   const int w0 = blockIdx.x / heads * G;
@@ -369,7 +435,7 @@ window_layout_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     t.out_col = HEADSPLIT ? HD : C;
     t.in_row = win * t.in_col;
     t.out_row = win * t.out_col;
-    if constexpr (TABLE) {  // the expanded tables, shared by every window and head
+    if constexpr (BIAS == BIAS_TABLE) {  // the expanded tables, shared by every window and head
       t.bh = bh;
       t.bw = bw;
     } else {
@@ -378,7 +444,36 @@ window_layout_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     t.qkv_bias = nullptr;
     t.C = C;
-    attend<TABLE, true>(t, smem, L, win, scale);
+    attend<HD, HD, BIAS, true>(t, smem, L, win, scale);
+  }
+}
+
+// T2 / T3: one block per G (window, head) pairs, looping over them; q, k
+// [BH, N, dqk], v and out [BH, N, FOLD_DV].
+__global__ void __launch_bounds__(THREADS)
+folded_window_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out, int dqk, int win,
+                     int G) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L(win * win, FOLD_DQK, FOLD_DV);
+  const int N = win * win;
+  for (int g = 0; g < G; ++g) {
+    if (g) __syncthreads();  // the previous window's q/k/v are consumed
+    const int64_t w = (int64_t)blockIdx.x * G + g;
+    Tile t;
+    t.q = q + w * N * dqk;
+    t.k = k + w * N * dqk;
+    t.v = v + w * N * FOLD_DV;
+    t.out = out + w * N * FOLD_DV;
+    t.in_col = dqk;
+    t.in_row = (int64_t)win * dqk;
+    t.v_col = t.out_col = FOLD_DV;
+    t.v_row = t.out_row = win * FOLD_DV;
+    t.bh = t.bw = nullptr;
+    t.qkv_bias = nullptr;
+    t.C = 0;
+    t.dqk = dqk;
+    attend<FOLD_DQK, FOLD_DV, BIAS_NONE, false>(t, smem, L, win, 1.0f);
   }
 }
 
@@ -393,27 +488,63 @@ cudaError_t launch(Kernel kernel, const Layout& L, int blocks, cudaStream_t stre
   return cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, int HD>
 cudaError_t launch_window(const void* qkv, const void* qkv_bias, const void* bh,
                           const void* bw, void* out, int blocks, int Hp, int Wp, int C,
                           int heads, int win, int G, cudaStream_t stream) {
-  return launch(window_attention_kernel<MODE>, Layout(win * win), blocks, stream,
+  return launch(window_attention_kernel<MODE, HD>, Layout(win * win, HD, HD), blocks, stream,
                 reinterpret_cast<const bf16*>(qkv), reinterpret_cast<const bf16*>(qkv_bias),
                 reinterpret_cast<const bf16*>(bh), reinterpret_cast<const bf16*>(bw),
                 reinterpret_cast<bf16*>(out), Hp, Wp, C, heads, win, G,
                 1.0f / sqrtf((float)HD));
 }
 
-template <bool HEADSPLIT, bool TABLE>
+template <int HD>
+int window_modes(const void* qkv, const void* qkv_bias, const void* bh, const void* bw,
+                 void* out, int B, int Hp, int Wp, int C, int heads, int win, int mode, int G,
+                 cudaStream_t s) {
+  const int nI = Hp / win, nJ = Wp / win;
+  if (mode == MODE_WINDOW)
+    return (int)launch_window<MODE_WINDOW, HD>(qkv, qkv_bias, bh, bw, out, B * nI * nJ * heads,
+                                               Hp, Wp, C, heads, win, 1, s);
+  if (mode == MODE_ROLLED)
+    return (int)launch_window<MODE_ROLLED, HD>(qkv, qkv_bias, bh, bw, out, B * nI * heads, Hp,
+                                               Wp, C, heads, win, 1, s);
+  if (mode == MODE_GBATCH && G > 0 && B % G == 0)
+    return (int)launch_window<MODE_GBATCH, HD>(qkv, qkv_bias, bh, bw, out,
+                                               (B / G) * nI * nJ * heads, Hp, Wp, C, heads, win,
+                                               G, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool HEADSPLIT, int BIAS, int HD>
+int launch_layout_hd(const void* q, const void* k, const void* v, const void* bh,
+                     const void* bw, void* out, int nW, int C, int heads, int win, int G,
+                     float scale, cudaStream_t stream) {
+  return (int)launch(window_layout_kernel<HEADSPLIT, BIAS, HD>,
+                     Layout(win * win, HD, HD, BIAS == BIAS_TABLE ? win : 0), nW / G * heads,
+                     stream, reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
+                     reinterpret_cast<const bf16*>(v), reinterpret_cast<const bf16*>(bh),
+                     reinterpret_cast<const bf16*>(bw), reinterpret_cast<bf16*>(out), C, heads,
+                     win, G, scale);
+}
+
+// scale <= 0: 1 / sqrt(head_dim)
+template <bool HEADSPLIT, int BIAS>
 int launch_layout(const void* q, const void* k, const void* v, const void* bh, const void* bw,
-                  void* out, int nW, int C, int heads, int win, int G, cudaStream_t stream) {
-  if (C != heads * HD || win <= 0 || win * win > 256 || G <= 0 || nW <= 0 || nW % G)
+                  void* out, int nW, int C, int heads, int win, int G, float scale,
+                  cudaStream_t stream) {
+  if (heads <= 0 || C % heads || win <= 0 || win * win > 256 || G <= 0 || nW <= 0 || nW % G)
     return (int)cudaErrorInvalidValue;
-  return (int)launch(window_layout_kernel<HEADSPLIT, TABLE>, Layout(win * win, TABLE ? win : 0),
-                     nW / G * heads, stream, reinterpret_cast<const bf16*>(q),
-                     reinterpret_cast<const bf16*>(k), reinterpret_cast<const bf16*>(v),
-                     reinterpret_cast<const bf16*>(bh), reinterpret_cast<const bf16*>(bw),
-                     reinterpret_cast<bf16*>(out), C, heads, win, G, 1.0f / sqrtf((float)HD));
+  const int hd = C / heads;
+  if (scale <= 0.f) scale = 1.0f / sqrtf((float)hd);
+  if (hd == 64)
+    return launch_layout_hd<HEADSPLIT, BIAS, 64>(q, k, v, bh, bw, out, nW, C, heads, win, G,
+                                                 scale, stream);
+  if (hd == 80)
+    return launch_layout_hd<HEADSPLIT, BIAS, 80>(q, k, v, bh, bw, out, nW, C, heads, win, G,
+                                                 scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -422,25 +553,18 @@ extern "C" {
 
 // qkv [B, Hp, Wp, 3C] bf16 (bias-free, zero pads), qkv_bias [3C] bf16,
 // bh / bw [B, Hp/win, Wp/win, heads, win*win, win] bf16,
-// out [B, Hp, Wp, C] bf16. head_dim must be 64. mode: MODE_WINDOW (K2),
+// out [B, Hp, Wp, C] bf16. head_dim 64 or 80. mode: MODE_WINDOW (K2),
 // MODE_ROLLED or MODE_GBATCH (K10; G images a block, G must divide B).
 int samroad_window_attention(const void* qkv, const void* qkv_bias, const void* bh,
                              const void* bw, void* out, int B, int Hp, int Wp,
                              int C, int heads, int win, int mode, int G, void* stream) {
-  if (C != heads * HD || win <= 0 || Hp % win || Wp % win || win * win > 256)
+  if (heads <= 0 || C % heads || win <= 0 || Hp % win || Wp % win || win * win > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int nI = Hp / win, nJ = Wp / win;
-  if (mode == MODE_WINDOW)
-    return (int)launch_window<MODE_WINDOW>(qkv, qkv_bias, bh, bw, out, B * nI * nJ * heads, Hp,
-                                           Wp, C, heads, win, 1, s);
-  if (mode == MODE_ROLLED)
-    return (int)launch_window<MODE_ROLLED>(qkv, qkv_bias, bh, bw, out, B * nI * heads, Hp, Wp,
-                                           C, heads, win, 1, s);
-  if (mode == MODE_GBATCH && G > 0 && B % G == 0)
-    return (int)launch_window<MODE_GBATCH>(qkv, qkv_bias, bh, bw, out,
-                                           (B / G) * nI * nJ * heads, Hp, Wp, C, heads, win,
-                                           G, s);
+  if (C / heads == 64)
+    return window_modes<64>(qkv, qkv_bias, bh, bw, out, B, Hp, Wp, C, heads, win, mode, G, s);
+  if (C / heads == 80)
+    return window_modes<80>(qkv, qkv_bias, bh, bw, out, B, Hp, Wp, C, heads, win, mode, G, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -449,24 +573,45 @@ int samroad_window_attention(const void* qkv, const void* qkv_bias, const void* 
 int samroad_window_attention_rows(const void* qkv, const void* bh, const void* bw, void* out,
                                   int nW, int C, int heads, int win, int G, void* stream) {
   const bf16* p = reinterpret_cast<const bf16*>(qkv);
-  return launch_layout<false, false>(p, p + C, p + 2 * C, bh, bw, out, nW, C, heads, win, G,
-                                     reinterpret_cast<cudaStream_t>(stream));
+  return launch_layout<false, BIAS_ROWS>(p, p + C, p + 2 * C, bh, bw, out, nW, C, heads, win, G,
+                                         0.f, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// K12: K11's qkv and out, the expanded tables rh / rw [win*win, win, 64] bf16.
+// K12: K11's qkv and out, the expanded tables rh / rw [win*win, win, hd] bf16.
 int samroad_window_attention_relpos(const void* qkv, const void* rh, const void* rw, void* out,
                                     int nW, int C, int heads, int win, int G, void* stream) {
   const bf16* p = reinterpret_cast<const bf16*>(qkv);
-  return launch_layout<false, true>(p, p + C, p + 2 * C, rh, rw, out, nW, C, heads, win, G,
-                                    reinterpret_cast<cudaStream_t>(stream));
+  return launch_layout<false, BIAS_TABLE>(p, p + C, p + 2 * C, rh, rw, out, nW, C, heads, win,
+                                          G, 0.f, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// K13: q, k, v, out [nW, heads, win*win, 64] bf16, rh / rw as K12's.
+// K13: q, k, v, out [nW, heads, win*win, hd] bf16, rh / rw as K12's.
 int samroad_window_attention_relpos_batched(const void* q, const void* k, const void* v,
                                             const void* rh, const void* rw, void* out, int nW,
-                                            int heads, int win, int G, void* stream) {
-  return launch_layout<true, true>(q, k, v, rh, rw, out, nW, heads * HD, heads, win, G,
-                                   reinterpret_cast<cudaStream_t>(stream));
+                                            int heads, int hd, int win, int G, void* stream) {
+  return launch_layout<true, BIAS_TABLE>(q, k, v, rh, rw, out, nW, heads * hd, heads, win, G,
+                                         0.f, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// T4: q (pre-scaled), k, v, out [BH, win*win, hd] bf16, bias rows qh, qw
+// [BH, win*win, win] bf16; scale 1; one (window, head) a block.
+int samroad_sel_attention(const void* q, const void* k, const void* v, const void* qh,
+                          const void* qw, void* out, int BH, int hd, int win, void* stream) {
+  return launch_layout<true, BIAS_ROWS>(q, k, v, qh, qw, out, BH, hd, 1, win, 1, 1.0f,
+                                        reinterpret_cast<cudaStream_t>(stream));
+}
+
+// T2 / T3: q, k [BH, win*win, dqk] bf16 (dqk a multiple of 4 up to 96), v,
+// out [BH, win*win, 64] bf16; G (window, head) pairs a block (G divides BH).
+int samroad_window_attn_folded(const void* q, const void* k, const void* v, void* out, int BH,
+                               int dqk, int win, int G, void* stream) {
+  if (dqk <= 0 || dqk > FOLD_DQK || dqk % 4 || win <= 0 || win * win > 256 || G <= 0 ||
+      BH <= 0 || BH % G)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch(folded_window_kernel, Layout(win * win, FOLD_DQK, FOLD_DV), BH / G,
+                     reinterpret_cast<cudaStream_t>(stream), reinterpret_cast<const bf16*>(q),
+                     reinterpret_cast<const bf16*>(k), reinterpret_cast<const bf16*>(v),
+                     reinterpret_cast<bf16*>(out), dqk, win, G);
 }
 
 }  // extern "C"

@@ -41,10 +41,17 @@ _SIGNATURES = {
     "samroad_window_attention": [_P] * 5 + [_I] * 8 + [_P],
     "samroad_window_attention_rows": [_P] * 4 + [_I] * 5 + [_P],
     "samroad_window_attention_relpos": [_P] * 4 + [_I] * 5 + [_P],
-    "samroad_window_attention_relpos_batched": [_P] * 6 + [_I] * 4 + [_P],
-    "samroad_relpos_attention": [_P] * 6 + [_I] * 4 + [_P],
+    "samroad_window_attention_relpos_batched": [_P] * 6 + [_I] * 5 + [_P],
+    "samroad_relpos_attention": [_P] * 6 + [_I] * 5 + [_P],
     "samroad_flash_attention": [_P] * 4 + [_I] * 4 + [_P],
+    "samroad_sel_attention": [_P] * 6 + [_I] * 3 + [_P],
+    "samroad_window_attn_folded": [_P] * 4 + [_I] * 4 + [_P],
+    "samroad_diag_attention": [_P] * 3 + [_I] * 5 + [_P],
 }
+
+# head dims the attention kernels are instantiated at (window_attention.cu,
+# relpos_attention.cu): ViT-B and vit_l's 64, vit_h's 80
+HEAD_DIMS = (64, 80)
 
 
 def reset_launches() -> None:
@@ -97,6 +104,12 @@ def require(t, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def require_head_dim(hd: int, name: str) -> None:
+    """Raise unless the attention kernels have an instance at head_dim hd."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel has instances at head_dim {HEAD_DIMS}, got {hd}")
 
 
 def recompute_vjp(ctx, plain, g, *static):

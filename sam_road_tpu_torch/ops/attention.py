@@ -23,7 +23,8 @@ scores in VMEM. On the H100 it is compute-bound (268 MFLOP per (image,
 head) against 0.5 MB of q/k/v) and shared memory cannot hold the scores,
 so the kernel is a flash-attention loop: one block per (image x head,
 64-query tile), 64-key tiles, fp32 online softmax, the bias rows spread as
-bh[n, m // W] + bw[n, m % W] onto each key tile. K5 replaces
+bh[n, m // W] + bw[n, m % W] onto each key tile; instances at head_dim 64
+and 80 (vit_h's global blocks: 256 tokens at 256 px). K5 replaces
 attention.py::fused_attention (_flash_forward: the whole-N _flash_kernel and
 the kv-tiled _blocked_kernel) with the same loop over a runtime contraction
 width D = head_dim + H + W; it tiles every N, so the XLA fallback for an N
@@ -57,9 +58,10 @@ def attention_relpos_rows(q, k, v, bh, bw, hw):
         return attention_relpos_rows_plain(q, k, v, bh, bw, hw)
     H, W = hw
     B, nH, N, D = q.shape
-    if N != H * W or N % 64 or D != 64:
-        raise ValueError(f"relpos attention kernel needs N == H*W, N % 64 == 0 "
-                         f"and head_dim 64, got N={N} hw={hw} D={D}")
+    if N != H * W or N % 64:
+        raise ValueError(f"relpos attention kernel needs N == H*W and N % 64 == 0, "
+                         f"got N={N} hw={hw}")
+    _build.require_head_dim(D, "attention_relpos_rows")
     bf = torch.bfloat16
     _build.require(q, "q", bf)
     _build.require(k, "k", bf, q.shape)
@@ -70,7 +72,7 @@ def attention_relpos_rows(q, k, v, bh, bw, hw):
     lib = _build.kernels()
     _build.check(lib.samroad_relpos_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bh.data_ptr(), bw.data_ptr(),
-        out.data_ptr(), B * nH, N, H, W, _build.stream_of(q)),
+        out.data_ptr(), B * nH, N, H, W, D, _build.stream_of(q)),
         "attention_relpos_rows")
     _build.launches["attention_relpos_rows"] += 1
     return out

@@ -43,7 +43,13 @@ within bf16 rounding. `group` (windows a block) follows the JAX halving rule
 over nW and gives bit-equal outputs. K13's TPU padding of the tokens to a
 multiple of 128 with -1e30 keys adds exact zeros; its plain version keeps
 it, the kernel computes on the real keys. Like K2, bound by latency and
-shared memory; the kernels need head_dim 64.
+shared memory.
+
+Head dims: every kernel here has instances at head_dim 64 (ViT-B, vit_l)
+and 80 (vit_h); another head_dim raises. The kernels scale the fp32 scores
+after the product, the JAX body's non-merged branch (fused_block.py:209-214),
+which at a power of two equals its merged branch's pre-scaled q bit for bit;
+K2's plain version follows whichever branch the JAX body takes.
 """
 
 from __future__ import annotations
@@ -58,7 +64,9 @@ def window_attention_rows_grid_plain(qkv_grid, qkv_bias, bh, bw, win: int,
                                      num_heads: int):
     """Follows sam_road_tpu/ops/fused_block.py::_window_attn_grid_ref:
     window partition, s = q.k^T * scale + bh[n, i'] + bw[n, j'], fp32
-    softmax, p cast to the input dtype for p.v; returns [B, Hp, Wp, C]."""
+    softmax, p cast to the input dtype for p.v; returns [B, Hp, Wp, C].
+    The scale goes on q when head_dim is a power of two (exact in any
+    dtype: _win_attn_body's merged branch), else on the fp32 product."""
     B, Hp, Wp, C3 = qkv_grid.shape
     C = C3 // 3
     hd = C // num_heads
@@ -72,7 +80,10 @@ def window_attention_rows_grid_plain(qkv_grid, qkv_bias, bh, bw, win: int,
         return t.reshape(B, nI, nJ, N, num_heads, hd).permute(0, 1, 2, 4, 3, 5)
 
     q, k, v = heads(qkv[..., :C]), heads(qkv[..., C:2 * C]), heads(qkv[..., 2 * C:])
-    s = torch.matmul(q * hd ** -0.5, k.transpose(-1, -2)).float()
+    if hd & (hd - 1) == 0:
+        s = torch.matmul(q * hd ** -0.5, k.transpose(-1, -2)).float()
+    else:
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
     s = s.reshape(B, nI, nJ, num_heads, N, win, win)
     s = s + bh.float()[..., None] + bw.float()[..., None, :]
     p = torch.softmax(s.reshape(B, nI, nJ, num_heads, N, N), dim=-1)
@@ -115,8 +126,9 @@ def window_attention_rows_grid(qkv_grid, qkv_bias, bh, bw, win: int,
     C = C3 // 3
     if Hp % win or Wp % win:
         raise ValueError(f"grid {Hp}x{Wp} is not a multiple of window {win}")
-    if C != 64 * num_heads:
-        raise ValueError(f"window attention kernel needs head_dim 64, got {C // num_heads}")
+    if C % num_heads:
+        raise ValueError(f"{C} channels do not split into {num_heads} heads")
+    _build.require_head_dim(C // num_heads, name)
     bf = torch.bfloat16
     rows = (B, Hp // win, Wp // win, num_heads, win * win, win)
     _build.require(qkv_grid, "qkv_grid", bf)
@@ -245,19 +257,20 @@ def window_attention_relpos_batched_plain(q, k, v, rel_pos_h, rel_pos_w, win: in
     return out[:, :N].reshape(nW, H, N, hd)
 
 
-def _kernel_tables(rel_pos_h, rel_pos_w, win: int):
+def _kernel_tables(rel_pos_h, rel_pos_w, win: int, hd: int):
     """The expanded bf16 tables the K12 / K13 kernels read, checked."""
     rh, rw = expand_rel_pos(rel_pos_h, rel_pos_w, win, torch.bfloat16)
     for t, name in ((rh, "rel_pos_h"), (rw, "rel_pos_w")):
-        _build.require(t, name, torch.bfloat16, (win * win, win, 64))
+        _build.require(t, name, torch.bfloat16, (win * win, win, hd))
     return rh, rw
 
 
 def _check_window(N: int, C: int, win: int, num_heads: int, name: str) -> None:
     if N != win * win:
         raise ValueError(f"{name}: {N} tokens are not a {win}x{win} window")
-    if C != 64 * num_heads:
-        raise ValueError(f"{name} kernel needs head_dim 64, got {C // num_heads}")
+    if C % num_heads:
+        raise ValueError(f"{name}: {C} channels do not split into {num_heads} heads")
+    _build.require_head_dim(C // num_heads, name)
 
 
 def window_attention_rows(qkv_windows, bh, bw, win: int, num_heads: int, group: int = 1):
@@ -292,7 +305,7 @@ def window_attention_relpos(qkv_windows, rel_pos_h, rel_pos_w, win: int, num_hea
     _check_window(N, C, win, num_heads, "window_attention_relpos")
     bf = torch.bfloat16
     _build.require(qkv_windows, "qkv_windows", bf)
-    rh, rw = _kernel_tables(rel_pos_h, rel_pos_w, win)
+    rh, rw = _kernel_tables(rel_pos_h, rel_pos_w, win, C // num_heads)
     out = torch.empty((nW, N, C), dtype=bf, device=qkv_windows.device)
     _build.check(_build.kernels().samroad_window_attention_relpos(
         qkv_windows.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(), nW, C, num_heads,
@@ -313,11 +326,11 @@ def window_attention_relpos_batched(q, k, v, rel_pos_h, rel_pos_w, win: int, gro
     _build.require(q, "q", bf)
     _build.require(k, "k", bf, q.shape)
     _build.require(v, "v", bf, q.shape)
-    rh, rw = _kernel_tables(rel_pos_h, rel_pos_w, win)
+    rh, rw = _kernel_tables(rel_pos_h, rel_pos_w, win, hd)
     out = torch.empty_like(q)
     _build.check(_build.kernels().samroad_window_attention_relpos_batched(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(), out.data_ptr(),
-        nW, H, win, group_size(group, nW), _build.stream_of(q)),
+        nW, H, hd, win, group_size(group, nW), _build.stream_of(q)),
         "window_attention_relpos_batched")
     _build.launches["window_attention_relpos_batched"] += 1
     return out

@@ -3,7 +3,10 @@ the bench shapes (ViT-B at 512 px: C 768, 12 heads, 32x32 token grid,
 window 14), the K6 wrappers' forward and gradients at the training shapes
 (the same at batch 16), and the grid modes K7, K8 and K10 bit-equal to the
 kernels they vary (K1 + pad, K4 on the cropped input, K2), and K9, K11, K12
-and K13 at the tools' shapes (groups bit-equal), on an NVIDIA GPU.
+and K13 at the tools' shapes (groups bit-equal), K2, K3 and K10-K13 at
+vit_h's head_dim 80 (C 1280, 16 heads; at 256 px a 16x16 grid padded to
+28x28), and the tools' kernels T1-T4 (T3 bit-equal to T2 at every G), on an
+NVIDIA GPU.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
 where torch sees no GPU. This file imports neither jax nor the JAX package,
@@ -15,6 +18,13 @@ import pytest
 import torch
 
 from sam_road_tpu_torch.ops import _build, attention, fused_block, fused_ln
+from sam_road_tpu_torch.tools import (
+    experiment_group_window,
+    experiment_relpos_kernel,
+    experiment_window_attn,
+)
+
+VITH = dict(C=1280, heads=16, grid=16)  # vit_h at 256 px: head_dim 80
 
 
 @pytest.fixture
@@ -24,16 +34,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _bench_case(name, B, dev):
+def _bench_case(name, B, dev, C=768, heads=12, grid=32):
     """Inputs at the bench shapes (ViT-B, 512 px: C 768, 12 heads, 32x32
-    grid, window 14) for one kernel, bf16."""
+    grid, window 14; or VITH) for one kernel, bf16."""
     gen = torch.Generator(device=dev).manual_seed(7)
     bf = torch.bfloat16
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    C, heads, hd, grid, win = 768, 12, 64, 32, 14
+    hd, win = C // heads, 14
     M = B * grid * grid
     if name in ("ln_dense", "ln_dense_bias"):
         args = (rn(M, C), 1 + rn(C, scale=0.1), rn(C, scale=0.1),
@@ -46,7 +56,8 @@ def _bench_case(name, B, dev):
                 rn(4 * C, scale=0.1), rn(C, 4 * C, scale=(4 * C) ** -0.5), rn(C, scale=0.1))
         return fused_ln.proj_ln_mlp_residual, fused_ln.proj_ln_mlp_residual_plain, args
     if name == "window_attention_rows_grid":
-        gp, nw = 42, 3
+        nw = -(-grid // win)
+        gp = nw * win
         qkv = torch.zeros((B, gp, gp, 3 * C), dtype=bf, device=dev)
         qkv[:, :grid, :grid] = rn(B, grid, grid, 3 * C)
         rows = (B, nw, nw, heads, win * win, win)
@@ -247,11 +258,11 @@ def test_cuda_ln_mlp_residual_matches_plain(cuda):
     assert ((got - ref).abs() / (1 + ref.abs())).max().item() <= 2e-2
 
 
-def _window_layout_case(name, dev):
+def _window_layout_case(name, dev, nW=288, heads=12, hd=64):
     """(kernel taking group=, plain version, bf16 inputs) for K11-K13 at the
     tools' shapes: 288 windows of 14 x 14 tokens, C 768, 12 heads."""
     gen = torch.Generator(device=dev).manual_seed(12)
-    nW, N, win, heads, hd = 288, 196, 14, 12, 64
+    N, win = 196, 14
 
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
@@ -304,3 +315,114 @@ def test_cuda_window_attention_relpos_batched_is_relpos_on_split_heads(cuda):
     k13 = fused_block.window_attention_relpos_batched(q, k, v, rh, rw, 14)
     k13 = k13.permute(0, 2, 1, 3).reshape(288, 196, 768).float()
     assert ((k13 - k12).abs() / (1 + k12.abs())).max().item() <= 2e-2
+
+
+def _within_tol(got, ref):
+    """Finite and |got - ref| <= 2e-2 (1 + |ref|), ref in fp32."""
+    return bool(torch.isfinite(got.float()).all()) and (
+        (got.float() - ref).abs() / (1 + ref.abs())).max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["window_attention_rows_grid", "attention_relpos_rows"])
+def test_cuda_attention_kernels_match_plain_at_head_dim_80(cuda, name):
+    """K2 and K3 at vit_h's 256 px shapes (head_dim 80; 2 x 2 windows of
+    14 x 14 on the padded grid, 256 global tokens) within 2e-2 (1 + |plain|)
+    of the plain version in fp32; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern, plain, args = _bench_case(name, 4, cuda, **VITH)
+    before = _build.launches[name]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert _within_tol(got, plain(*[a.float() for a in args]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,name", [(dict(rolled_rows=True), "rolled"),
+                                       (dict(group_batch=4), "gbatch")])
+def test_cuda_window_attention_modes_are_bit_equal_to_k2_at_head_dim_80(cuda, mode, name):
+    """K10 at head_dim 80 gives K2's output bit for bit."""
+    kern, _, args = _bench_case("window_attention_rows_grid", 4, cuda, **VITH)
+    want = kern(*args)
+    got = fused_block.window_attention_rows_grid(*args, 14, 16, **mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["window_attention_rows", "window_attention_relpos",
+                                  "window_attention_relpos_batched"])
+def test_cuda_window_layout_kernels_match_plain_at_head_dim_80(cuda, name):
+    """K11, K12, K13 at head_dim 80 (16 windows of vit_h's 256 px batch of
+    4, 16 heads): within 2e-2 (1 + |plain|) of the plain version in fp32,
+    group 2 bit-equal to group 1."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern, plain, args = _window_layout_case(name, cuda, nW=16, heads=16, hd=80)
+    got = kern(*args)
+    same = torch.equal(kern(*args, group=2), got)
+    torch.cuda.synchronize()
+    assert same
+    assert _within_tol(got, plain(*[a.float() for a in args]))
+
+
+def _rn(gen, dev, *shape, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [2, 4, 8])
+def test_cuda_diag_attn_matches_plain(cuda, g):
+    """T1 on 48 windows of 14 x 14 (C 768, 12 heads) folded g to a product:
+    within 2e-2 (1 + |plain|) of its plain version in fp32, and of K11 on
+    the same windows; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    qkv = _rn(gen, cuda, 48, 196, 3 * 768)
+    bh, bw = (_rn(gen, cuda, 48, 12, 196, 14) for _ in range(2))
+    before = _build.launches["diag_attn"]
+    got = experiment_group_window.diag_attn(qkv, bh, bw, g)
+    torch.cuda.synchronize()
+    assert _build.launches["diag_attn"] == before + 1
+    f32 = [a.float() for a in (qkv, bh, bw)]
+    assert _within_tol(got, experiment_group_window.diag_attn_plain(*f32, g))
+    assert _within_tol(got, fused_block.window_attention_rows_plain(*f32, 14, 12))
+
+
+@pytest.mark.cuda
+def test_cuda_window_attn_kernels_match_plain_and_every_group_is_bit_equal(cuda):
+    """T2 on 432 (window, head) pairs, q/k 92 wide, v 64: within 2e-2
+    (1 + |plain|) of its plain version in fp32; T3 at G 2, 4 and 16
+    bit-equal to T2; one launch each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    q, k = (_rn(gen, cuda, 432, 196, 92, scale=0.3) for _ in range(2))
+    v = _rn(gen, cuda, 432, 196, 64)
+    before = (_build.launches["window_attn_kernel1"], _build.launches["window_attn_grouped"])
+    got = experiment_window_attn.window_attn_kernel1(q, k, v)
+    grouped = [experiment_window_attn.window_attn_grouped(q, k, v, G) for G in (2, 4, 16)]
+    torch.cuda.synchronize()
+    assert (_build.launches["window_attn_kernel1"],
+            _build.launches["window_attn_grouped"]) == (before[0] + 1, before[1] + 3)
+    assert all(torch.equal(o, got) for o in grouped)
+    assert _within_tol(got, experiment_window_attn.window_attn_plain(q.float(), k.float(),
+                                                                     v.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80])
+def test_cuda_sel_attention_matches_plain(cuda, hd):
+    """T4 on 432 (window, head) pairs of 196 tokens, pre-scaled q, bias rows
+    [432, 196, 14]: within 2e-2 (1 + |plain|) of its plain version in fp32;
+    one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    q = _rn(gen, cuda, 432, 196, hd, scale=hd ** -0.5)
+    k, v = (_rn(gen, cuda, 432, 196, hd) for _ in range(2))
+    qh, qw = (_rn(gen, cuda, 432, 196, 14) for _ in range(2))
+    before = _build.launches["sel_attention"]
+    got = experiment_relpos_kernel.sel_attention(q, k, v, qh, qw)
+    torch.cuda.synchronize()
+    assert _build.launches["sel_attention"] == before + 1
+    assert _within_tol(got, experiment_relpos_kernel.sel_attention_plain(
+        *[a.float() for a in (q, k, v, qh, qw)]))

@@ -7,8 +7,10 @@ On CPU tensors the wrappers take their plain PyTorch versions, so these tests
 hold those to the Pallas kernels in fp32, at the JAX tests' sizes (window 4,
 2 heads, head_dim 8, 6 windows) and tolerances: 3e-5 for K9 as
 tests/test_fused_ln.py, 2e-5 for K11-K13 as tests/test_fused_attention.py
-(the same math summed in another order). The CUDA kernels are held to these
-plain versions in tests/test_torch_cuda_kernels.py.
+(the same math summed in another order). The `hd80` cases, and the K2 and
+K3 tests here, run vit_h's head_dim 80, where the JAX window body takes its
+non-merged branch (the scale after the fp32 product). The CUDA kernels are
+held to these plain versions in tests/test_torch_cuda_kernels.py.
 """
 
 import math
@@ -19,15 +21,19 @@ import torch
 
 import jax.numpy as jnp
 
+from sam_road_tpu.ops import attention as jattn
 from sam_road_tpu.ops import fused_block as jblock
 from sam_road_tpu.ops import fused_ln as jln
-from sam_road_tpu_torch.ops import fused_block, fused_ln
+from sam_road_tpu_torch.ops import attention, fused_block, fused_ln
 from sam_road_tpu_torch.tools import experiment_fused_ln, profile_windowed_block
 
 WIN, HEADS, HD, NW = 4, 2, 8, 6
 N, C = WIN * WIN, HEADS * HD
 TOL = dict(rtol=2e-5, atol=2e-5)
 t = torch.from_numpy
+# head_dim 8 at groups 1-3 (the JAX tests' size), and vit_h's head_dim 80
+GROUP_HD = pytest.mark.parametrize("group,hd", [(1, HD), (2, HD), (3, HD), (1, 80)],
+                                   ids=["1", "2", "3", "hd80"])
 
 
 def _close(got, want, **tol):
@@ -71,27 +77,28 @@ def test_ln_mlp_residual_after_projection_is_proj_ln_mlp_residual():
     _close(two, fused.numpy(), rtol=3e-5, atol=3e-5)
 
 
-def _window_inputs(seed):
+def _window_inputs(seed, hd=HD):
     r = np.random.default_rng(seed)
-    qkv = r.normal(size=(NW, N, 3 * C)).astype(np.float32)
-    rh = (0.1 * r.normal(size=(2 * WIN - 1, HD))).astype(np.float32)
-    rw = (0.1 * r.normal(size=(2 * WIN - 1, HD))).astype(np.float32)
+    qkv = r.normal(size=(NW, N, 3 * HEADS * hd)).astype(np.float32)
+    rh = (0.1 * r.normal(size=(2 * WIN - 1, hd))).astype(np.float32)
+    rw = (0.1 * r.normal(size=(2 * WIN - 1, hd))).astype(np.float32)
     return qkv, rh, rw
 
 
 def _bias_rows(qkv, rh, rw):
     """bh = q.Rh, bw = q.Rw [nW, heads, N, win], as the JAX tests make them."""
+    hd = rh.shape[-1]
     coords = np.arange(WIN)[:, None] - np.arange(WIN)[None, :] + WIN - 1
-    q = qkv[..., :C].reshape(NW, WIN, WIN, HEADS, HD)
-    bh = np.einsum("wijhc,iac->whija", q, rh[coords]).reshape(NW, HEADS, N, WIN)
-    bw = np.einsum("wijhc,jac->whija", q, rw[coords]).reshape(NW, HEADS, N, WIN)
+    q = qkv[..., :HEADS * hd].reshape(-1, WIN, WIN, HEADS, hd)
+    bh = np.einsum("wijhc,iac->whija", q, rh[coords]).reshape(-1, HEADS, N, WIN)
+    bw = np.einsum("wijhc,jac->whija", q, rw[coords]).reshape(-1, HEADS, N, WIN)
     return bh.astype(np.float32), bw.astype(np.float32)
 
 
-@pytest.mark.parametrize("group", [1, 2, 3])
-def test_window_attention_rows_plain_matches_pallas(group):
+@GROUP_HD
+def test_window_attention_rows_plain_matches_pallas(group, hd):
     """K11 against fused_block.py::window_attention_rows at each group."""
-    qkv, rh, rw = _window_inputs(7)
+    qkv, rh, rw = _window_inputs(7, hd)
     bh, bw = _bias_rows(qkv, rh, rw)
     want = jblock.window_attention_rows(*map(jnp.asarray, (qkv, bh, bw)), WIN, HEADS,
                                         interpret=True, group=group)
@@ -99,11 +106,11 @@ def test_window_attention_rows_plain_matches_pallas(group):
            want)
 
 
-@pytest.mark.parametrize("group", [1, 2, 3])
-def test_window_attention_relpos_plain_matches_pallas(group):
+@GROUP_HD
+def test_window_attention_relpos_plain_matches_pallas(group, hd):
     """K12 against fused_block.py::window_attention_relpos; every group
     gives group 1's output exactly."""
-    qkv, rh, rw = _window_inputs(5)
+    qkv, rh, rw = _window_inputs(5, hd)
     want = jblock.window_attention_relpos(*map(jnp.asarray, (qkv, rh, rw)), WIN, HEADS,
                                           interpret=True)
     got = fused_block.window_attention_relpos(t(qkv), t(rh), t(rw), WIN, HEADS, group=group)
@@ -112,22 +119,54 @@ def test_window_attention_relpos_plain_matches_pallas(group):
     assert torch.equal(got, one)
 
 
-@pytest.mark.parametrize("group", [1, 2, 3])
-def test_window_attention_relpos_batched_plain_matches_pallas(group):
+@GROUP_HD
+def test_window_attention_relpos_batched_plain_matches_pallas(group, hd):
     """K13 (its 16 -> 128 token padding included) against
     fused_block.py::window_attention_relpos_batched and against the port's
     K12 on the same tokens in window layout."""
     r = np.random.default_rng(5)
-    q, k, v = (r.normal(size=(NW, HEADS, N, HD)).astype(np.float32) for _ in range(3))
-    rh, rw = ((0.1 * r.normal(size=(2 * WIN - 1, HD))).astype(np.float32) for _ in range(2))
+    q, k, v = (r.normal(size=(NW, HEADS, N, hd)).astype(np.float32) for _ in range(3))
+    rh, rw = ((0.1 * r.normal(size=(2 * WIN - 1, hd))).astype(np.float32) for _ in range(2))
     want = jblock.window_attention_relpos_batched(*map(jnp.asarray, (q, k, v, rh, rw)), WIN,
                                                   group=group, interpret=True)
     got = fused_block.window_attention_relpos_batched(t(q), t(k), t(v), t(rh), t(rw), WIN,
                                                       group=group)
     _close(got, want)
-    qkv = np.concatenate([a.transpose(0, 2, 1, 3).reshape(NW, N, C) for a in (q, k, v)], -1)
+    qkv = np.concatenate([a.transpose(0, 2, 1, 3).reshape(NW, N, HEADS * hd)
+                          for a in (q, k, v)], -1)
     k12 = fused_block.window_attention_relpos(t(qkv), t(rh), t(rw), WIN, HEADS)
-    _close(got, k12.reshape(NW, N, HEADS, HD).permute(0, 2, 1, 3).numpy())
+    _close(got, k12.reshape(NW, N, HEADS, hd).permute(0, 2, 1, 3).numpy())
+
+
+def test_window_attention_rows_grid_plain_matches_pallas_at_head_dim_80():
+    """K2 at vit_h's head_dim 80 (2 heads, a 6x6 grid padded to 8x8 at
+    window 4): the JAX body's non-merged branch, the scale after the fp32
+    product, against fused_block.py::window_attention_rows_grid."""
+    r = np.random.default_rng(22)
+    B, H, hd, Hp = 2, 6, 80, 8
+    C3 = 3 * HEADS * hd
+    grid = np.zeros((B, Hp, Hp, C3), np.float32)
+    grid[:, :H, :H] = r.normal(size=(B, H, H, C3))
+    bias = (0.5 * r.normal(size=C3)).astype(np.float32)
+    rows = (B, Hp // WIN, Hp // WIN, HEADS, N, WIN)
+    bh, bw = (r.normal(size=rows).astype(np.float32) for _ in range(2))
+    want = jblock.window_attention_rows_grid(*map(jnp.asarray, (grid, bias, bh, bw)), WIN,
+                                             HEADS, interpret=True)
+    _close(fused_block.window_attention_rows_grid(t(grid), t(bias), t(bh), t(bw), WIN, HEADS),
+           want)
+
+
+def test_attention_relpos_rows_plain_matches_pallas_at_head_dim_80():
+    """K3 at head_dim 80 on a 6x6 grid (vit_h's global blocks are 16x16 at
+    256 px) against attention.py::attention_relpos_rows."""
+    r = np.random.default_rng(23)
+    B, H, W, D = 2, 6, 6, 80
+    q = (r.normal(size=(B, HEADS, H * W, D)) * D ** -0.5).astype(np.float32)
+    k, v = (r.normal(size=(B, HEADS, H * W, D)).astype(np.float32) for _ in range(2))
+    bh = r.normal(size=(B, HEADS, H * W, H)).astype(np.float32)
+    bw = r.normal(size=(B, HEADS, H * W, W)).astype(np.float32)
+    want = jattn.attention_relpos_rows(*map(jnp.asarray, (q, k, v, bh, bw)), (H, W), True)
+    _close(attention.attention_relpos_rows(t(q), t(k), t(v), t(bh), t(bw), (H, W)), want)
 
 
 def test_window_attention_rows_matches_grid_kernel_on_partitioned_grid():
