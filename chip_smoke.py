@@ -13,8 +13,9 @@ calibration CLI, then checks K9 and K11-K13 (the tools' kernels; groups
 bit-equal) and runs the kernel A/B and windowed-block profiling tools, then
 checks K2, K3 and K10-K13 at vit_h's head_dim 80 and drives vit_h's fused
 encoder and a region through it, then checks the tools' own kernels T1-T4
-and runs their three tools, showing that each path ran through its
-kernels. Every
+and runs their three tools, then checks T5-T8 and runs the block-variant
+and Mosaic-probe tools, showing that each path ran through its kernels.
+Every
 kernel's time sits beside its bound (bytes or operations at the card's
 peak rates) and, where one PyTorch call computes the same function, that
 call's time.
@@ -152,6 +153,18 @@ T_META = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "sel_attention": ("sam_road_tpu_torch/csrc/window_attention.cu",
                       "tools/experiment_relpos_kernel.py:85"),
 }
+# phase 14: T5-T8 at their tools' shapes, and the loops of their two tools.
+# T5 runs relpos_attention.cu's MODE_TABLE on the global grid (its first
+# variant) and K13's mode of window_attention.cu on a window.
+T58_META = {  # kernel -> (CUDA source, the TPU kernel it replaces)
+    "inker_attention": ("sam_road_tpu_torch/csrc/relpos_attention.cu",
+                        "tools/experiment_block_variants.py:96"),
+    "merge_dense": ("sam_road_tpu_torch/csrc/gemm.cu", "tools/probe_mosaic.py:40"),
+    "batched_dot": ("sam_road_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:74"),
+    "lane_slice": ("sam_road_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:101"),
+}
+BLOCK_LOOP = dict(iters=10, reps=3)
+PROBE_REPS = 20
 GROUP_WINDOW_LOOP = dict(iters=10, rounds=4)
 WINDOW_ATTN_LOOP = dict(iters=30, reps=3)
 RELPOS_LOOP = dict(iters=20, reps=3)
@@ -184,6 +197,26 @@ def cuda_ms(fn, reps=10, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 50):
+    """Mean device time of the kernels one call of fn launches, in ms, from
+    torch.profiler's CUDA kernel events alone (a launch-bound kernel's
+    CUDA-event time is mostly its host-side launch); None where the
+    profiler recorded no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def nbytes(*tensors) -> int:
@@ -235,7 +268,25 @@ def kernel_flops(name: str, args) -> float:
     if name == "sel_attention":  # T4: q, k, v [BH, N, hd]
         q = args[0]
         return 4.0 * q.shape[0] * q.shape[1] ** 2 * q.shape[2]
+    if name == "inker_attention":  # T5: q [BH, N, hd], + the bias rows from rh, rw [N, w, hd]
+        q, rh, rw = args[0], args[3], args[4]
+        BH, N, hd = q.shape
+        return 4.0 * BH * N * N * hd + 2.0 * BH * N * (rh.shape[1] + rw.shape[1]) * hd
+    if name == "merge_dense":  # T6: x [G, NP, C], w [F, C]
+        return 2.0 * args[0].numel() * args[1].shape[0]
+    if name in ("batched_dot", "lane_slice"):  # T7, T8: 64-deep products of [B, N] rows
+        B, N = args[0].shape[:2]
+        return 2.0 * B * N * N * 64
     raise KeyError(name)
+
+
+def kernel_bytes(name: str, args, out) -> int:
+    """Bytes one call must move: each input read once, the output written
+    once; of lane_slice's x (T8) only the two 64-column heads it reads."""
+    if name == "lane_slice":
+        B, N = args[0].shape[:2]
+        return B * N * 128 * args[0].element_size() + nbytes(out)
+    return nbytes(*args) + nbytes(out)
 
 
 def library_call(name: str, args, win: int = 14, heads: int = 12):
@@ -293,6 +344,20 @@ def library_call(name: str, args, win: int = 14, heads: int = 12):
         bh, bw = rows
         mask = (bh[..., :, None] + bw[..., None, :]).reshape(nW, hq, N, N).contiguous()
         return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    if name == "inker_attention":  # T5: the bias rows q.rh, q.rw spread into a mask
+        q, k, v, rh, rw = args
+        BH, N, _ = q.shape
+        bh, bw = (torch.einsum("bnc,nac->bna", q, r) for r in (rh, rw))
+        mask = (bh[..., :, None] + bw[..., None, :]).reshape(1, BH, N, N).contiguous()
+        q, k, v = q[None], k[None], v[None]
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    if name == "merge_dense":  # T6: w [F, C]
+        x, w = args
+        return lambda: torch.matmul(x, w.t())
+    if name in ("batched_dot", "lane_slice"):  # T7, T8: torch.bmm, then the row max
+        x = args[0]
+        a, b = (x, x) if name == "batched_dot" else (x[..., :64], x[..., 64:128])
+        return lambda: torch.bmm(a, b.transpose(1, 2)).amax(-1)
     return None
 
 
@@ -305,7 +370,7 @@ def timing_row(name: str, args, out, kern, plain, fwd_bwd: bool = False, flops=N
     ms = cuda_ms(kern)
     plain_ms = cuda_ms(plain)
     flops = kernel_flops(name, args) if flops is None else flops
-    moved = nbytes(*args) + nbytes(out)
+    moved = kernel_bytes(name, args, out)
     lib = None if fwd_bwd else library_call(name, args, heads=heads)
     if fwd_bwd:  # + the gradient of every input, the cotangent read once
         flops, moved = 3 * flops, 2 * moved
@@ -1595,6 +1660,106 @@ def run_t_tools(dev: str = "cuda", group_window: dict | None = None,
     return launches
 
 
+def peaked_rows(gen, dev: str, B: int, N: int, D: int):
+    """q [B, N, D] bf16 whose row maxima of q[b] . q[b]^T lie off the
+    diagonal: row n is s_n u_b plus noise, s_n in [-1, 1] but 3 at row
+    37 b % N and -3 at row (37 b + N / 2) % N, so nearly every row's max is
+    at one of those two, in a key tile that moves with b (T7 on a = b = q
+    with random rows finds each max on the diagonal, whatever key tiles the
+    kernel visits)."""
+    import torch
+
+    s = torch.rand((B, N), generator=gen, device=dev) * 2 - 1
+    b = torch.arange(B, device=dev)
+    s[b, 37 * b % N] = 3.0
+    s[b, (37 * b + N // 2) % N] = -3.0
+    u = torch.randn((B, 1, D), generator=gen, device=dev)
+    noise = torch.randn((B, N, D), generator=gen, device=dev)
+    return (s[..., None] * u + 0.1 * noise).to(torch.bfloat16)
+
+
+def check_t58_kernels(dev: str = "cuda", windows: int = 32 * 9, win: int = 14, dim: int = 768,
+                      heads: int = 12, batch: int = 32, grid: int = 32, merge_tokens=(196, 200),
+                      tokens: int = 200, width: int = 768):
+    """Phase 14a: T5-T8 at their tools' shapes against their plain versions
+    in fp32: T5 over the (window, head) pairs of 288 windows of 14 x 14
+    (3456 x 196, head_dim 64) and over the global grid (32 images x 12
+    heads, 1024 tokens), unscaled q and the expanded tables; T6 at NP 196
+    and 200 (x [32, NP, 256], W [256, 256]); T7 on q [32, 200, 64], random
+    and `peaked_rows` (its key loop); T8 on x [8, 200, 768]. Library calls: SDPA with the bias as attn_mask (T5),
+    torch.matmul (T6), torch.bmm and amax (T7, T8). Each row also carries
+    `device_ms`, the kernel's own time from the profiler: T6-T8 are bound by
+    their launches."""
+    import torch
+
+    from sam_road_tpu_torch.ops.fused_block import expand_rel_pos
+    from sam_road_tpu_torch.tools import experiment_block_variants as bv, probe_mosaic as pm
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    hd, C = dim // heads, 256
+    cases = {}
+    for label, BH, side in (("global", batch * heads, grid), ("window", windows * heads, win)):
+        N = side * side
+        args = tuple(rn(BH, N, hd) for _ in range(3)) + expand_rel_pos(
+            rn(2 * side - 1, hd, scale=0.1), rn(2 * side - 1, hd, scale=0.1), side, bf)
+        cases[f"inker_attention {label}"] = (
+            "inker_attention", lambda *a, s=side: bv.inker_attention(*a, s, s),
+            lambda *a, s=side: bv.inker_attention_plain(*a, s, s), args, [], None)
+    for NP in merge_tokens:
+        cases[f"merge_dense NP{NP}"] = ("merge_dense", pm.merge_dense, pm.merge_dense_plain,
+                                        (rn(batch, NP, C), rn(C, C)), [], None)
+    cases["batched_dot"] = ("batched_dot", pm.batched_dot, lambda q: pm.rowmax_dot_plain(q, q),
+                            (rn(batch, tokens, pm.HEAD),), [], None)
+    cases["batched_dot peaked"] = ("batched_dot", pm.batched_dot,
+                                   lambda q: pm.rowmax_dot_plain(q, q),
+                                   (peaked_rows(gen, dev, batch, tokens, pm.HEAD),), [], None)
+    cases["lane_slice"] = ("lane_slice", pm.lane_slice, lambda x: pm.rowmax_dot_plain(
+        x[..., :pm.HEAD], x[..., pm.HEAD:2 * pm.HEAD]), (rn(batch // 4, tokens, width),), [], None)
+    rows = check_cases(cases, heads, dev)
+    for label, (_, kern, _, args, _, _) in cases.items():
+        rows[label]["device_ms"] = device_ms(lambda: kern(*args)) if dev == "cuda" else None
+        print(f"kernel {label}: device_ms {rows[label]['device_ms']} (profiler kernel events, "
+              f"mean of 50 calls) against ms {rows[label]['ms']:.4f} (CUDA events)", flush=True)
+    return rows
+
+
+def run_t58_tools(dev: str = "cuda", block: dict | None = None, probe: dict | None = None):
+    """Phase 14b: experiment_block_variants and probe_mosaic in process, at
+    their shapes (or the geometries given, to rehearse on the CPU): every
+    block variant's L1 within 1e-2 of the xla block's, every probe "OK",
+    every launch count exact; returns the launches."""
+    from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.tools import experiment_block_variants as bv, probe_mosaic as pm
+
+    _build.reset_launches()
+    res_bv = bv.main(dev, **(block or {}), **BLOCK_LOOP)
+    res_pm = pm.main(dev, **(probe or {}), reps=PROBE_REPS)
+    launches = dict(_build.launches)
+    per_block = 1 + BLOCK_LOOP["iters"] * BLOCK_LOOP["reps"]
+    per_probe = 1 + PROBE_REPS
+    want = {  # K5 is the flash blocks' attention, windowed and global
+        "inker_attention": 2 * per_block, "fused_attention": 2 * per_block,
+        "merge_dense": 2 * per_probe, "batched_dot": per_probe, "lane_slice": per_probe}
+    if dev != "cuda":
+        want = {}  # the plain versions launch nothing
+    ratios = {k: res_bv[f"{k}_l1"] / res_bv[f"{p}_l1"] for k, p in bv.PAIRS.items()}
+    answers = {k: v for k, v in res_pm.items() if isinstance(v, str)}
+    print(f"tools T5-T8: launches {launches}; L1 over the xla block's {ratios}; probes "
+          f"{answers}", flush=True)
+    if launches != want:
+        raise SystemExit(f"tools T5-T8 launches {launches}, expected {want}")
+    if not all(abs(r - 1) <= 1e-2 for r in ratios.values()):
+        raise SystemExit(f"a block variant's L1 is off the xla block's: {ratios}")
+    if len(answers) != 4 or any(v != "OK" for v in answers.values()):
+        raise SystemExit(f"a probe did not pass: {answers}")
+    return launches
+
+
 def main():
     phase("1 device")
     import torch
@@ -1687,6 +1852,12 @@ def main():
     t_launches = run_t_tools()
     print(f"phase 13 took {time.time() - t:.1f} s", flush=True)
 
+    phase("14 the tools' kernels T5-T8, experiment_block_variants and probe_mosaic")
+    t = time.time()
+    t_rows.update(check_t58_kernels())
+    t_launches.update(run_t58_tools())
+    print(f"phase 14 took {time.time() - t:.1f} s", flush=True)
+
     kernels = []
     def vith_fields(name):  # phase 12's head_dim 80 reading and vit_h region launches
         extra = {"head_dim_80": vith[name]} if name in vith else {}
@@ -1706,7 +1877,8 @@ def main():
     for name, (src, replaces) in TOOL_META.items():  # K9, K11, K12, K13
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=tool_launches[name], **tool[name], **vith_fields(name)))
-    for name, (src, replaces) in T_META.items():  # T1-T4: the first variant, each in `variants`
+    # T1-T8: the first variant's reading, and each variant's under `variants`
+    for name, (src, replaces) in {**T_META, **T58_META}.items():
         rows = {label: row for label, row in t_rows.items() if label.split()[0] == name}
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=t_launches[name], **next(iter(rows.values())),

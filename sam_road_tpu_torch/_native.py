@@ -27,7 +27,10 @@ def build_and_load(name: str, compiler: str, flags: list, sources: list):
     The sources compile at once, one compiler process each, into objects
     that one more call links. The compiler writes a temporary file
     that is renamed into place, so processes that build the same library at
-    once never load a half-written one. Returns the ctypes.CDLL."""
+    once never load a half-written one; what the compilers printed goes to
+    the library's path + ".log" (for the CUDA kernels, ptxas's registers,
+    spills and shared memory of every kernel instance). Returns the
+    ctypes.CDLL."""
     exe = shutil.which(compiler)
     if exe is None:
         raise RuntimeError(f"{compiler} not found: cannot build {name}")
@@ -42,29 +45,33 @@ def build_and_load(name: str, compiler: str, flags: list, sources: list):
         objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
         compile_flags = [f for f in flags if f != "-shared"] + ["-c"]
         try:
-            _run([[exe] + compile_flags + ["-o", o, s] for o, s in zip(objs, sources)],
-                 name, compiler)
-            _run([[exe] + flags + ["-o", tmp] + objs], name, compiler)
+            log = _run([[exe] + compile_flags + ["-o", o, s] for o, s in zip(objs, sources)],
+                       name, compiler)
+            log += _run([[exe] + flags + ["-o", tmp] + objs], name, compiler)
         finally:
             for o in objs:
                 if os.path.exists(o):
                     os.remove(o)
         os.replace(tmp, lib)
+        with open(f"{lib}.log", "w") as f:
+            f.write(log)
     return ctypes.CDLL(lib)
 
 
-def _run(commands: list, name: str, compiler: str) -> None:
+def _run(commands: list, name: str, compiler: str) -> str:
     """Run the commands all at once (one compiler process each) and raise
-    if any failed, after all have ended."""
+    if any failed, after all have ended; returns what they printed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in commands]
-    failed = []
-    for proc in procs:
+    failed, log = [], ""
+    for c, proc in zip(commands, procs):
         out, err = proc.communicate()
+        log += f"$ {c[-1]}\n{out}{err}"
         if proc.returncode != 0:
             failed.append(f"{compiler} exit {proc.returncode}:\n{out}\n{err}")
     if failed:
         raise RuntimeError(f"building {name} failed ({'; '.join(failed)})")
+    return log
 
 
 def native_source(name: str) -> str:

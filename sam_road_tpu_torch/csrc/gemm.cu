@@ -47,6 +47,15 @@
 // is its fp32 x1). Bound by the tensor cores (309 GFLOP per call at
 // M = 32768, C = 768, hidden 3072); the TPU kernel keeps the hidden in VMEM,
 // here it makes one bf16 round trip through HBM (0.4 GB).
+//
+// T6 merge_dense (replaces tools/probe_mosaic.py::mk_merge, the probe of a
+// (G, NP, C) -> (G NP, C) merge in VMEM before a dot): out = x . W^T over
+// the rows of x [32, NP, 256] read flat (the merge is a view here), A_BF16
+// with no bias or residual. W is read as [N, K] like every other instance;
+// the caller transposes the probe's [in, out] W once. M = 32 NP is 6272 =
+// 49 x 128 at NP 196 and 6400 = 50 x 128 at NP 200, so neither has a ragged
+// row tile (the Mosaic question has no counterpart here). Bound by launch
+// latency: 0.8 GFLOP against 6.6 MB, about 2 us at the HBM peak.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -482,6 +491,15 @@ int samroad_proj_ln_mlp_residual_grid(const void* x, const void* a, const void* 
   return proj_ln_mlp_residual<true>(x, a, wp, bp, ln_s, ln_b, w1, b1, w2, b2, x1, mid, out,
                                     B * H * W, C, F, reinterpret_cast<cudaStream_t>(stream),
                                     GridMap{H, W, Hp, Wp});
+}
+
+// T6: out[M, N] bf16 = x[M, K] . w[N, K]^T, no bias.
+int samroad_merge_dense(const void* x, const void* w, void* out, int M, int N, int K,
+                        void* stream) {
+  if (N % BN || K % BK || M <= 0) return (int)cudaErrorInvalidValue;
+  launch<A_BF16, false, false, RES_NONE, false>(x, w, nullptr, nullptr, nullptr, nullptr, out,
+                                                M, N, K, reinterpret_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

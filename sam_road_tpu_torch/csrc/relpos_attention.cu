@@ -1,8 +1,9 @@
 // Global attention with decomposed relative-position bias rows: the CUDA
 // kernel behind K3 (attention_relpos_rows) of
-// sam_road_tpu_torch/ops/attention.py, and, as a second mode of the same
-// loop, the tool kernel T1 (diag_attn) of
-// sam_road_tpu_torch/tools/experiment_group_window.py.
+// sam_road_tpu_torch/ops/attention.py, and, as further modes of the same
+// loop, the tool kernels T1 (diag_attn) of
+// sam_road_tpu_torch/tools/experiment_group_window.py and T5's global case
+// (inker_attention) of sam_road_tpu_torch/tools/experiment_block_variants.py.
 //
 // K3 replaces sam_road_tpu/ops/attention.py::attention_relpos_rows
 // (_relpos_rows_kernel). The Pallas kernel holds all N x N scores of one
@@ -41,6 +42,23 @@
 // normalises first: equal within bf16 rounding. Bound: its HBM bytes (385 MB
 // at the tool's shapes, 0.115 ms) up to g = 2, its g-fold score work (34 g
 // GFLOP) beyond.
+//
+// T5's global case (MODE_TABLE) replaces
+// tools/experiment_block_variants.py::inker_attention (make_inker_kernel)
+// at N = 1024 tokens (a 32 x 32 grid): K3's function with the bias rows built
+// in the kernel from the expanded tables rh [N, Hg, hd], rw [N, Wg, hd]
+// (bf16). Each warp first builds its 16 query rows' bias rows in fp32 into
+// shared memory after the block's other buffers (16 x (Hg + Wg) floats a
+// warp, 4 KB at a 32 x 32 grid):
+//   bh[n, a] = sum_c q[n, c] rh[n, a, c],  bw[n, a] = sum_c q[n, c] rw[n, a, c]
+// from the unscaled q, never rounded; then K3's loop with
+//   s = q.k^T * scale + bh[n, m // Wg] + bw[n, m % Wg]
+// (q arrives unscaled; the scale is a post-product fp32 multiply, as
+// MODE_DIAG's). The tables are 4 MiB each at N 1024; a block reads its 64
+// rows' 256 KB slice of each once, from L2 (they are shared by every image
+// and head). The Pallas body normalises p before p.v; the online softmax
+// divides after: equal within bf16 rounding, as T1's. Bound at the tool's
+// shapes (384 (image, head) pairs): 106 GFLOP, 0.107 ms of operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +76,8 @@ constexpr int WARPS = BQ / 16;
 constexpr int THREADS = WARPS * 32;
 constexpr int LDP = BKV + 8;   // bf16 probability row stride
 
-enum Mode { MODE_RELPOS = 0, MODE_DIAG = 1 };
+enum Mode { MODE_RELPOS = 0, MODE_DIAG = 1, MODE_TABLE = 2 };
+constexpr int TABLE_W = 64;    // MODE_TABLE: bias-row floats per query row (Hg + Wg at most)
 
 template <int HD>
 struct Smem {
@@ -80,12 +99,12 @@ struct Smem {
 
 struct Args {
   const bf16 *q, *k, *v;     // MODE_DIAG: k = q + C, v = q + 2C (one qkv tensor)
-  const bf16 *bh, *bw;       // MODE_DIAG: bh = bhw, bw unused
+  const bf16 *bh, *bw;       // MODE_DIAG: bh = bhw, bw unused; MODE_TABLE: rh, rw
   bf16* out;
   int N;                     // queries = keys per (image, head) or per group (g N)
-  int Hg, Wg;                // K3: the token grid; MODE_DIAG: tokens per window, win
+  int Hg, Wg;                // K3, MODE_TABLE: the token grid; MODE_DIAG: tokens per window, win
   int C, heads;              // MODE_DIAG
-  float scale;               // MODE_DIAG
+  float scale;               // MODE_DIAG, MODE_TABLE
 };
 
 // rows [0, 64) of a tile, `stride` elements apart; rows from `valid` on are zero
@@ -98,6 +117,32 @@ __device__ __forceinline__ void load_tile(bf16 (*dst)[Smem<HD>::LDT], const bf16
     if (r < valid) u = *reinterpret_cast<const uint4*>(src + r * stride + c);
     *reinterpret_cast<uint4*>(&dst[r][c]) = u;
   }
+}
+
+// sum_c a[c] b[c] over D bf16 values (16-byte aligned rows), in fp32
+template <int D>
+__device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += 8) {
+    const uint4 ua = *reinterpret_cast<const uint4*>(a + c);
+    const uint4 ub = *reinterpret_cast<const uint4*>(b + c);
+    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&ua);
+    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&ub);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(ha[i]), y = __bfloat1622float2(hb[i]);
+      acc += x.x * y.x;
+      acc += x.y * y.y;
+    }
+  }
+  return acc;
+}
+
+// dynamic shared memory of one block: Smem<HD>, then MODE_TABLE's bias rows
+template <int HD, int MODE>
+constexpr int smem_bytes() {
+  return (int)sizeof(Smem<HD>) + (MODE == MODE_TABLE ? WARPS * 16 * TABLE_W * 4 : 0);
 }
 
 template <int HD, int MODE>
@@ -125,6 +170,20 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
 
   load_tile<HD>(sm.Q, a.q + base + q0 * stride, stride, N - q0, tid);
   for (int e = lane; e < 16 * HD; e += 32) ws.O[e / HD][e % HD] = 0.f;
+  // MODE_TABLE: this warp's bias rows [16][Hg + Wg], fp32, one (row, a) a lane
+  float(*tab)[TABLE_W] =
+      reinterpret_cast<float(*)[TABLE_W]>(smem_raw + sizeof(Sm)) + warp * 16;
+  if constexpr (MODE == MODE_TABLE) {
+    __syncthreads();  // the q tile is in
+    const int nb = a.Hg + a.Wg;
+    for (int e = lane; e < 16 * nb; e += 32) {
+      const int r = e / nb, c = e % nb;
+      const int64_t n = q0 + warp * 16 + r;
+      const bf16* row = c < a.Hg ? a.bh + (n * a.Hg + c) * HD : a.bw + (n * a.Wg + c - a.Hg) * HD;
+      tab[r][c] = dot_bf16<HD>(&sm.Q[warp * 16 + r][0], row);
+    }
+    __syncwarp();
+  }
   if (lane < 16) {
     ws.m[lane] = -INFINITY;
     ws.l[lane] = 0.f;
@@ -174,6 +233,13 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
             }
           }
           s[t] = v;
+          mx = fmaxf(mx, s[t]);
+        }
+      } else if constexpr (MODE == MODE_TABLE) {
+#pragma unroll
+        for (int t = 0; t < BKV / 32; ++t) {
+          const int m = lane + 32 * t, key = k0 + m;
+          s[t] = ws.S[r][m] * a.scale + tab[r][key / a.Wg] + tab[r][a.Hg + key % a.Wg];
           mx = fmaxf(mx, s[t]);
         }
       } else {
@@ -242,7 +308,7 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
 
 template <int HD, int MODE>
 int launch(const Args& a, int BH, cudaStream_t stream) {
-  const int bytes = (int)sizeof(Smem<HD>);
+  const int bytes = smem_bytes<HD, MODE>();
   cudaError_t e = cudaFuncSetAttribute(relpos_attention_kernel<HD, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
@@ -286,6 +352,21 @@ int samroad_diag_attention(const void* qkv, const void* bhw, void* out, int nG, 
   Args a{p, p + C, p + 2 * C, reinterpret_cast<const bf16*>(bhw), nullptr,
          reinterpret_cast<bf16*>(out), g * Nw, Nw, win, C, heads, 1.0f / sqrtf((float)hd)};
   return launch_hd<MODE_DIAG>(a, hd, nG * heads, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// T5 global: q (unscaled), k, v, out [BH, N, hd] bf16, hd 64 or 80; rh
+// [N, Hg, hd], rw [N, Wg, hd] bf16 (the expanded rel-pos tables) with
+// N == Hg * Wg, N % 64 == 0 and Hg + Wg <= 64; scale 1 / sqrt(hd).
+int samroad_relpos_attention_table(const void* q, const void* k, const void* v,
+                                   const void* rh, const void* rw, void* out, int BH, int N,
+                                   int Hg, int Wg, int hd, void* stream) {
+  if (N != Hg * Wg || N % BQ || Hg + Wg > TABLE_W || BH <= 0 || hd <= 0)
+    return (int)cudaErrorInvalidValue;
+  Args a{reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
+         reinterpret_cast<const bf16*>(v), reinterpret_cast<const bf16*>(rh),
+         reinterpret_cast<const bf16*>(rw), reinterpret_cast<bf16*>(out), N, Hg, Wg, 0, 0,
+         1.0f / sqrtf((float)hd)};
+  return launch_hd<MODE_TABLE>(a, hd, BH, reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

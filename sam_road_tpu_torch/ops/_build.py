@@ -21,9 +21,11 @@ import shutil
 from sam_road_tpu_torch._native import PKG_DIR, build_and_load
 
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "flash_attention.cu")
+SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "flash_attention.cu",
+           "probes.cu")
+# --ptxas-options=-v: each instance's registers and spills, in the build log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v"]
 
 # Kernel launches by wrapper name: each wrapper adds one where it launches
 # its kernel, and nowhere else. chip_smoke.py reads these to show that the
@@ -47,6 +49,9 @@ _SIGNATURES = {
     "samroad_sel_attention": [_P] * 6 + [_I] * 3 + [_P],
     "samroad_window_attn_folded": [_P] * 4 + [_I] * 4 + [_P],
     "samroad_diag_attention": [_P] * 3 + [_I] * 5 + [_P],
+    "samroad_relpos_attention_table": [_P] * 6 + [_I] * 5 + [_P],
+    "samroad_merge_dense": [_P] * 3 + [_I] * 3 + [_P],
+    "samroad_rowmax_dot": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 # head dims the attention kernels are instantiated at (window_attention.cu,

@@ -1,5 +1,7 @@
 """Kernel-level tools of the port (counterparts of the repository's tools/):
 experiment_fused_ln (the kernel A/B), profile_windowed_block (the windowed
 block's stage split), and the tools that carry their own kernels:
-experiment_group_window (T1 diag_attn), experiment_window_attn (T2, T3) and
-experiment_relpos_kernel (T4 sel_attention)."""
+experiment_group_window (T1 diag_attn), experiment_window_attn (T2, T3),
+experiment_relpos_kernel (T4 sel_attention), experiment_block_variants (T5
+inker_attention, in whole windowed and global blocks) and probe_mosaic (T6
+merge_dense, T7 batched_dot, T8 lane_slice)."""

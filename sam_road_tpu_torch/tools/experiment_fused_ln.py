@@ -29,9 +29,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
+
+from sam_road_tpu_torch.utils.profiling import ms_per_call
 
 WHICH = ("ln_dense", "ln_mlp", "wattn", "all")
 PAIRS = {  # each kernel variant -> the plain variant of the same function
@@ -72,20 +73,6 @@ def main(which: str = "all", device: str = "cuda", *, tokens: int = 32 * 1024, d
         results[label + "_l1"] = float(fn(*args).float().abs().sum())
         runners.append((label, fn, args))
         print(f"# {label}: ran", flush=True)
-
-    def clock(fn, args):
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn(*args)
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / iters
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(*args)
-        return (time.perf_counter() - t0) * 1e3 / iters
 
     with torch.no_grad():
         # ---- LN + dense (qkv shape: C -> 3C), weights [out, in] ----
@@ -167,7 +154,7 @@ def main(which: str = "all", device: str = "cuda", *, tokens: int = 32 * 1024, d
         times = {label: [] for label, _, _ in runners}
         for _ in range(rounds):
             for label, fn, args in runners:
-                times[label].append(clock(fn, args))
+                times[label].append(ms_per_call(lambda: fn(*args), iters, dev))
     for label, ts in times.items():
         results[label + "_ms"] = min(ts)
         print(f"# {label}: {results[label + '_ms']} ms", flush=True)

@@ -37,13 +37,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 import torch
 
 from sam_road_tpu_torch.ops import _build
 from sam_road_tpu_torch.ops.fused_block import window_attention_rows
+from sam_road_tpu_torch.utils.profiling import ms_per_call
 
 GROUPS = (2, 4, 8)
 
@@ -133,20 +133,6 @@ def main(groups=GROUPS, device: str = "cuda", *, windows: int = 32 * 9, win: int
     qkv, bh, bw = arr((windows, N, 3 * dim)), arr((windows, heads, N, win)), arr(
         (windows, heads, N, win))
 
-    def clock(fn):
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / iters
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / iters
-
     results, runners = {}, []
     with torch.no_grad():
         ref = window_attention_rows(qkv, bh, bw, win, heads).float()
@@ -167,7 +153,8 @@ def main(groups=GROUPS, device: str = "cuda", *, windows: int = 32 * 9, win: int
             check_and_stage(f"diag_g{g}", lambda g=g: diag_attn(qkv, bh, bw, g))
         for _ in range(rounds):
             for label, fn in runners:
-                results.setdefault(label + "_all", []).append(round(clock(fn), 2))
+                ms = ms_per_call(fn, iters, dev)
+                results.setdefault(label + "_all", []).append(round(ms, 2))
     for label, _ in runners:
         results[label + "_ms"] = min(results[label + "_all"])
     print(json.dumps(results, indent=1))

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 import torch
@@ -51,6 +50,7 @@ from sam_road_tpu_torch.models.vit import (
     window_unpartition,
 )
 from sam_road_tpu_torch.ops import _build
+from sam_road_tpu_torch.utils.profiling import ms_per_call
 
 PAIRS = {"v0_current": "plain_block", "v1_selector": "plain_block"}
 
@@ -113,7 +113,8 @@ class SelBlock(nn.Module):
         self.mlp_lin2 = nn.Linear(4 * dim, dim)
 
     def load_block(self, blk: Block) -> "SelBlock":
-        """Take a windowed models/vit.py Block's weights."""
+        """Take a models/vit.py Block's weights (InkerBlock, a subclass,
+        takes a global Block's too)."""
         names = {"norm1": "norm1", "qkv": "attn.qkv", "rel_pos_h": "attn.rel_pos_h",
                  "rel_pos_w": "attn.rel_pos_w", "proj": "attn.proj", "norm2": "norm2",
                  "mlp_lin1": "mlp.lin1", "mlp_lin2": "mlp.lin2"}
@@ -168,27 +169,18 @@ def main(device: str = "cuda", *, batch: int = 32, grid: int = 32, dim: int = 76
     plain.load_state_dict(blk.state_dict())
     sel = SelBlock(dim, heads, win).to(dev).load_block(blk)
 
-    def clock(fn):
+    def applications(fn):  # iters calls, each fed the last one's output
         h = x
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                h = fn(h)
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / iters
-        t0 = time.perf_counter()
         for _ in range(iters):
             h = fn(h)
-        return (time.perf_counter() - t0) * 1e3 / iters
 
     results = {}
     with torch.no_grad():
         results["plain_block_l1"] = float(plain(x).float().abs().sum())
         for label, fn in (("v0_current", blk), ("v1_selector", sel)):
             results[label + "_l1"] = float(fn(x).float().abs().sum())
-            results[label + "_ms"] = round(min(clock(fn) for _ in range(reps)), 2)
+            results[label + "_ms"] = round(
+                min(ms_per_call(lambda: applications(fn), 1, dev) / iters for _ in range(reps)), 2)
             print(f"# {label}: {results[label + '_ms']} ms", flush=True)
     print(json.dumps(results, indent=1))
     return results

@@ -32,12 +32,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import time
 
 import numpy as np
 import torch
 
 from sam_road_tpu_torch.ops import _build
+from sam_road_tpu_torch.utils.profiling import ms_per_call
 
 GROUPS = (4, 16)
 PAIRS = {  # each kernel variant -> the plain variant of the same function
@@ -125,20 +125,6 @@ def main(device: str = "cuda", *, batch: int = 32, heads: int = 12, win: int = 1
 
     q, k, v = arr((BH, N, D)), arr((BH, N, D)), arr((BH, N, hd))
 
-    def clock(fn):
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn(q, k, v)
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / iters
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(q, k, v)
-        return (time.perf_counter() - t0) * 1e3 / iters
-
     variants = {"xla": xla_attn, "kernel1": window_attn_kernel1}
     for G in GROUPS:
         variants[f"kernel_g{G}"] = lambda q, k, v, G=G: window_attn_grouped(q, k, v, G)
@@ -146,7 +132,8 @@ def main(device: str = "cuda", *, batch: int = 32, heads: int = 12, win: int = 1
     with torch.no_grad():
         for label, fn in variants.items():
             results[label + "_l1"] = float(fn(q, k, v).float().abs().sum())
-            results[label + "_ms"] = round(min(clock(fn) for _ in range(reps)), 3)
+            results[label + "_ms"] = round(
+                min(ms_per_call(lambda: fn(q, k, v), iters, dev) for _ in range(reps)), 3)
             print(f"# {label}: {results[label + '_ms']} ms", flush=True)
     print(json.dumps(results, indent=1))
     return results

@@ -20,9 +20,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
+
+from sam_road_tpu_torch.utils.profiling import ms_per_call
 
 STAGES = ("ln_qkv", "biasrows", "attn", "full")
 
@@ -68,20 +69,6 @@ def main(device: str = "cuda", *, batch: int = 32, grid: int = 32, dim: int = 76
 
     stages = dict(zip(STAGES, (ln_qkv, biasrows, attn, full)))
 
-    def clock(fn):
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn(x)
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / iters
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(x)
-        return (time.perf_counter() - t0) * 1e3 / iters
-
     with torch.no_grad():
         for name, fn in stages.items():
             fn(x)
@@ -89,7 +76,7 @@ def main(device: str = "cuda", *, batch: int = 32, grid: int = 32, dim: int = 76
         times = {name: [] for name in stages}
         for _ in range(rounds):
             for name, fn in stages.items():
-                times[name].append(clock(fn))
+                times[name].append(ms_per_call(lambda: fn(x), iters, dev))
     results = {name + "_ms": min(ts) for name, ts in times.items()}
     print(json.dumps(results, indent=1))
     return results

@@ -5,7 +5,8 @@ window 14), the K6 wrappers' forward and gradients at the training shapes
 kernels they vary (K1 + pad, K4 on the cropped input, K2), and K9, K11, K12
 and K13 at the tools' shapes (groups bit-equal), K2, K3 and K10-K13 at
 vit_h's head_dim 80 (C 1280, 16 heads; at 256 px a 16x16 grid padded to
-28x28), and the tools' kernels T1-T4 (T3 bit-equal to T2 at every G), on an
+28x28), the tools' kernels T1-T4 (T3 bit-equal to T2 at every G), T5 on a
+window and on the global grid, and T6-T8 at the probes' shapes, on an
 NVIDIA GPU.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
@@ -19,9 +20,11 @@ import torch
 
 from sam_road_tpu_torch.ops import _build, attention, fused_block, fused_ln
 from sam_road_tpu_torch.tools import (
+    experiment_block_variants,
     experiment_group_window,
     experiment_relpos_kernel,
     experiment_window_attn,
+    probe_mosaic,
 )
 
 VITH = dict(C=1280, heads=16, grid=16)  # vit_h at 256 px: head_dim 80
@@ -426,3 +429,77 @@ def test_cuda_sel_attention_matches_plain(cuda, hd):
     assert _build.launches["sel_attention"] == before + 1
     assert _within_tol(got, experiment_relpos_kernel.sel_attention_plain(
         *[a.float() for a in (q, k, v, qh, qw)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,side,hd", [(432, 14, 64), (48, 32, 64), (32, 32, 80)])
+def test_cuda_inker_attention_matches_plain(cuda, BH, side, hd):
+    """T5 on a 14 x 14 window (K13's table mode at one head) and on the
+    32 x 32 global grid (MODE_TABLE, head_dim 64 and 80), unscaled q, the
+    expanded tables [N, side, hd]: within 2e-2 (1 + |plain|) of its plain
+    version in fp32; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    N = side * side
+    q, k, v = (_rn(gen, cuda, BH, N, hd) for _ in range(3))
+    rh, rw = fused_block.expand_rel_pos(_rn(gen, cuda, 2 * side - 1, hd, scale=0.1),
+                                        _rn(gen, cuda, 2 * side - 1, hd, scale=0.1), side,
+                                        torch.bfloat16)
+    before = _build.launches["inker_attention"]
+    got = experiment_block_variants.inker_attention(q, k, v, rh, rw, side, side)
+    torch.cuda.synchronize()
+    assert _build.launches["inker_attention"] == before + 1
+    assert _within_tol(got, experiment_block_variants.inker_attention_plain(
+        *[a.float() for a in (q, k, v, rh, rw)], side, side))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NP", [196, 200])
+def test_cuda_merge_dense_matches_plain(cuda, NP):
+    """T6: x [32, NP, 256] . W^T, W [256, 256] ([out, in]) within 2e-2 (1 +
+    |plain|) of its plain version in fp32; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    x, w = _rn(gen, cuda, 32, NP, 256), _rn(gen, cuda, 256, 256)
+    before = _build.launches["merge_dense"]
+    got = probe_mosaic.merge_dense(x, w)
+    torch.cuda.synchronize()
+    assert _build.launches["merge_dense"] == before + 1
+    assert _within_tol(got, probe_mosaic.merge_dense_plain(x.float(), w.float()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [("batched_dot", (32, 200, 64)),
+                                        ("lane_slice", (8, 200, 768))])
+def test_cuda_rowmax_dot_probes_match_plain(cuda, name, shape):
+    """T7 (q [32, 200, 64]) and T8 (x [8, 200, 768], heads 0 and 1) through
+    rowmax_dot: within 2e-2 (1 + |plain|) of the plain version in fp32 (on
+    the CPU the wrapper takes it); one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _rn(torch.Generator(device=cuda).manual_seed(23), cuda, *shape)
+    kern = getattr(probe_mosaic, name)
+    before = _build.launches[name]
+    got = kern(x)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert got.shape == shape[:2]
+    assert _within_tol(got, kern(x.float().cpu()).to(cuda))
+
+
+@pytest.mark.cuda
+def test_cuda_batched_dot_finds_row_maxima_off_the_diagonal(cuda):
+    """T7 at its strides on q [32, 200, 64] whose rows are s_n u_b plus
+    noise, with s 3 and -3 at two rows an image that move across the key
+    tiles (the last, partial one too): each row's max is at one of them,
+    not on the diagonal, so the kernel must visit every key tile to stay
+    within 2e-2 (1 + |plain|) of rowmax_dot_plain."""
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    B, N, D = 32, 200, 64
+    s = torch.rand((B, N), generator=gen, device=cuda) * 2 - 1
+    b = torch.arange(B, device=cuda)
+    s[b, 37 * b % N], s[b, (37 * b + N // 2) % N] = 3.0, -3.0
+    u = torch.randn((B, 1, D), generator=gen, device=cuda)
+    q = (s[..., None] * u + 0.1 * torch.randn((B, N, D), generator=gen, device=cuda)).bfloat16()
+    ref = probe_mosaic.rowmax_dot_plain(q.float(), q.float())
+    assert (ref > torch.einsum("bnc,bnc->bn", q.float(), q.float()) + 1).float().mean() > 0.9
+    assert _within_tol(probe_mosaic.batched_dot(q), ref)

@@ -7,6 +7,8 @@ same math, summed in another order). The CUDA kernels themselves are held
 to these plain versions in tests/test_torch_cuda_kernels.py.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -145,6 +147,18 @@ def test_wrappers_take_plain_version_on_cpu_and_refuse_other_devices():
 def test_failed_native_build_raises():
     with pytest.raises(RuntimeError, match="not found"):
         _native.build_and_load("nothing", "no-such-compiler-xyz", [], [])
+
+
+def test_native_build_keeps_the_compiler_log(tmp_path):
+    """A built library has what its compilers printed beside it, in
+    <library>.log: for the CUDA kernels, ptxas's registers and spills."""
+    src = tmp_path / "warns.cc"
+    src.write_text('extern "C" int one() { int unused_here; return 1; }\n')
+    lib = _native.build_and_load("logcheck", "g++", ["-shared", "-fPIC", "-Wall"], [str(src)])
+    assert lib.one() == 1
+    log = os.path.join(_native.BUILD_DIR, os.path.basename(lib._name) + ".log")
+    with open(log) as f:
+        assert "unused_here" in f.read()
 
 
 def test_bilinear_sample_points_matches_jax_including_outside_points():
