@@ -14,7 +14,9 @@ bit-equal) and runs the kernel A/B and windowed-block profiling tools, then
 checks K2, K3 and K10-K13 at vit_h's head_dim 80 and drives vit_h's fused
 encoder and a region through it, then checks the tools' own kernels T1-T4
 and runs their three tools, then checks T5-T8 and runs the block-variant
-and Mosaic-probe tools, showing that each path ran through its kernels.
+and Mosaic-probe tools, then checks T9-T13 and runs the non-dividing block
+probes and the batched-product repro, showing that each path ran through
+its kernels.
 Every
 kernel's time sits beside its bound (bytes or operations at the card's
 peak rates) and, where one PyTorch call computes the same function, that
@@ -91,6 +93,7 @@ K6_META = {  # K6 wrapper -> (the kernel its forward launches, its CUDA source, 
 }
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
+PEAK_FP32 = 67e12  # fp32 outside the tensor cores (T9-T12's elementwise work)
 K10_META = {  # phase 10 kernel -> (CUDA source, the TPU kernel it replaces)
     "ln_dense_padded": ("sam_road_tpu_torch/csrc/gemm.cu", "sam_road_tpu/ops/fused_ln.py:126"),
     "proj_ln_mlp_residual_grid": ("sam_road_tpu_torch/csrc/gemm.cu",
@@ -163,6 +166,24 @@ T58_META = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "batched_dot": ("sam_road_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:74"),
     "lane_slice": ("sam_road_tpu_torch/csrc/probes.cu", "tools/probe_mosaic.py:101"),
 }
+# phase 15: T9-T13 at their tools' shapes, and the two tools. T9 / T10 are
+# csrc/probes.cu's row_block_affine, T11 / T12 its window_colsum, T13 its
+# batched_nt in two launch shapes.
+T913_META = {  # kernel -> (CUDA source, the TPU kernel it replaces)
+    "nondiv_read_write": ("sam_road_tpu_torch/csrc/probes.cu", "tools/probe_nondiv_blocks.py:40"),
+    "nondiv_out_exact": ("sam_road_tpu_torch/csrc/probes.cu", "tools/probe_nondiv_blocks.py:73"),
+    "inkernel_pad_loop": ("sam_road_tpu_torch/csrc/probes.cu",
+                          "tools/probe_nondiv_blocks.py:115"),
+    "oversized_sublane_block": ("sam_road_tpu_torch/csrc/probes.cu",
+                                "tools/probe_nondiv_blocks.py:170"),
+    "batched_nt": ("sam_road_tpu_torch/csrc/probes.cu", "tools/repro_aot_crash.py:50"),
+}
+T913_LIBRARY = {  # kernel -> the PyTorch expression timed as its library_ms
+    "nondiv_read_write": "F.pad(x, rows) + 1", "nondiv_out_exact": "x * 2",
+    "inkernel_pad_loop": "F.pad(x, cols).view(B, R, nJ, win, C).sum(3)",
+    "oversized_sublane_block": "F.pad(x, cols).view(B, R, nJ, win, C).sum(3)",
+    "batched_nt": "torch.bmm(a, b.transpose(1, 2))",
+}
 BLOCK_LOOP = dict(iters=10, reps=3)
 PROBE_REPS = 20
 GROUP_WINDOW_LOOP = dict(iters=10, rounds=4)
@@ -223,11 +244,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(flops: float, moved: float) -> dict:
+def bound(flops: float, moved: float, peak: float = PEAK_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations at
-    the bf16 tensor-core peak and the bytes (each input read once, each
-    output written once) at the HBM peak."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    their type's peak (the bf16 tensor cores unless `peak` says otherwise)
+    and the bytes (each input read once, each output written once) at the
+    HBM peak."""
+    t_ops, t_bytes = flops / peak * 1e3, moved / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes
                 else "bytes", flops=flops, bytes=moved)
 
@@ -358,20 +380,36 @@ def library_call(name: str, args, win: int = 14, heads: int = 12):
         x = args[0]
         a, b = (x, x) if name == "batched_dot" else (x[..., :64], x[..., 64:128])
         return lambda: torch.bmm(a, b.transpose(1, 2)).amax(-1)
+    if name == "nondiv_read_write":  # T9: x [B, H, W, C] padded to whole blocks of rows, + 1
+        x = args[0]
+        pad = -x.shape[1] % win
+        return lambda: F.pad(x, (0, 0, 0, 0, 0, pad)) + 1
+    if name == "nondiv_out_exact":  # T10
+        x = args[0]
+        return lambda: x * 2
+    if name in ("inkernel_pad_loop", "oversized_sublane_block"):  # T11, T12: x [B, R, W, C]
+        x = args[0]
+        B, R, W, C = x.shape
+        nJ = -(-W // win)
+        return lambda: F.pad(x, (0, 0, 0, nJ * win - W)).view(B, R, nJ, win, C).sum(3)
+    if name == "batched_nt":  # T13
+        a, b = args
+        return lambda: torch.bmm(a, b.transpose(1, 2))
     return None
 
 
 def timing_row(name: str, args, out, kern, plain, fwd_bwd: bool = False, flops=None,
-               heads: int = 12) -> dict:
+               heads: int = 12, win: int = 14, peak: float = PEAK_FLOPS) -> dict:
     """ms (kernel), plain_ms, library_ms and the bound of one call; `flops`
-    where the operations do not follow from name and args alone (T1)."""
+    where the operations do not follow from name and args alone (T1,
+    T9-T13), at `peak` operations a second."""
     import torch
 
     ms = cuda_ms(kern)
     plain_ms = cuda_ms(plain)
     flops = kernel_flops(name, args) if flops is None else flops
     moved = kernel_bytes(name, args, out)
-    lib = None if fwd_bwd else library_call(name, args, heads=heads)
+    lib = None if fwd_bwd else library_call(name, args, win=win, heads=heads)
     if fwd_bwd:  # + the gradient of every input, the cotangent read once
         flops, moved = 3 * flops, 2 * moved
     lib_ms = None
@@ -379,7 +417,7 @@ def timing_row(name: str, args, out, kern, plain, fwd_bwd: bool = False, flops=N
         with torch.no_grad():
             lib_ms = cuda_ms(lib)
         del lib
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound(flops, moved))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound(flops, moved, peak))
 
 
 def check_kernels(B: int, dev: str = "cuda"):
@@ -1760,6 +1798,128 @@ def run_t58_tools(dev: str = "cuda", block: dict | None = None, probe: dict | No
     return launches
 
 
+def check_t913_kernels(dev: str = "cuda", batch: int = 2, rows: int = 32, width: int = 32,
+                       channels: int = 256, win: int = 14, heads: int = 12, tokens: int = 256,
+                       depth: int = 64):
+    """Phase 15a: T9-T13 at their tools' shapes against their plain versions
+    in fp32: T9 (x [2, 32, 32, 256] in blocks of 14 rows, out 42 rows) and
+    T10 (out exactly 32 rows) bit-equal, T10 also through a view of 32 rows
+    of a buffer whose rows past H hold NaN, which must stay NaN; T11 (x [2,
+    14, 32, 256] -> [2, 14, 3, 256]) within 1e-4, T12 bit-equal to T11;
+    T13 (a, b [12, 256, 64] bf16) looped and batched within TOL (1 +
+    |ref|), bit-equal to each other. Library calls: F.pad + 1 (T9), x * 2
+    (T10), F.pad and a sum over the window (T11, T12), torch.bmm (T13).
+    Each row also carries `device_ms`, the kernels' own time from the
+    profiler: these kernels are bound by their launches."""
+    import torch
+
+    from sam_road_tpu_torch.tools import probe_nondiv_blocks as pnb, repro_aot_crash as rac
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    x_rows = torch.randn((batch, rows, width, channels), generator=gen, device=dev)
+    x_win = torch.randn((batch, win, width, channels), generator=gen, device=dev)
+    a, b = (torch.randn((heads, tokens, depth), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out_rows = -(-rows // win) * win
+    nJ = -(-width // win)
+    affine = 2.0 * batch * out_rows * width * channels  # T9: a multiply and an add an output
+    sums = float(batch * win * nJ * win * channels)  # T11, T12: an add a term
+    # label -> (kernel name, kernel, plain, args, atol, rtol, equal, flops, peak)
+    cases = {
+        "nondiv_read_write": (
+            "nondiv_read_write", lambda x: pnb.nondiv_read_write(x, win),
+            lambda x: pnb.row_block_affine_plain(x, out_rows, 1.0, 1.0), (x_rows,), 0.0, 0.0,
+            [], affine, PEAK_FP32),
+        "nondiv_out_exact": (
+            "nondiv_out_exact", lambda x: pnb.nondiv_out_exact(x, win),
+            lambda x: pnb.row_block_affine_plain(x, rows, 2.0, 0.0), (x_rows,), 0.0, 0.0, [],
+            affine * rows / out_rows, PEAK_FP32),
+        "inkernel_pad_loop": (
+            "inkernel_pad_loop", lambda x: pnb.inkernel_pad_loop(x, win),
+            lambda x: pnb.window_colsum_plain(x, win), (x_win,), pnb.SUM_TOL, 0.0, [], sums,
+            PEAK_FP32),
+        "oversized_sublane_block": (
+            "oversized_sublane_block", lambda x: pnb.oversized_sublane_block(x, win),
+            lambda x: pnb.window_colsum_plain(x, win), (x_win,), pnb.SUM_TOL, 0.0,
+            [lambda: pnb.inkernel_pad_loop(x_win, win)], sums, PEAK_FP32),
+    }
+    for shape in rac.SHAPES:
+        other = [lambda s=s: rac.batched_nt(a, b, looped=s == "looped")
+                 for s in rac.SHAPES if s != shape]
+        cases[f"batched_nt {shape}"] = (
+            "batched_nt", lambda a, b, s=shape: rac.batched_nt(a, b, looped=s == "looped"),
+            rac.batched_nt_plain, (a, b), TOL, TOL, other, 2.0 * heads * tokens * tokens * depth,
+            PEAK_FLOPS)
+    results = {}
+    for label, (name, kern, plain, args, atol, rtol, equal, flops, peak) in cases.items():
+        got = kern(*args)
+        same = all(torch.equal(f(), got) for f in equal)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ref = plain(*[t.float() for t in args])
+        err = (got.float() - ref).abs()
+        max_abs = err.max().item()
+        within = bool((err <= atol + rtol * ref.abs()).all())  # atol = rtol = 0: bit-equal
+        del err
+        row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args), flops=flops,
+                         heads=heads, win=win, peak=peak)
+        row["device_ms"] = device_ms(lambda: kern(*args)) if dev == "cuda" else None
+        ok = same and within and bool(torch.isfinite(got.float()).all())
+        print(f"kernel {label}: shape {tuple(got.shape)} bit-equal to {len(equal)} other "
+              f"call(s) {same} max_abs_err {max_abs:.3e} (atol {atol}, rtol {rtol}) "
+              f"{fmt_times(row)} device_ms {row['device_ms']} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise SystemExit(f"kernel {label} disagrees with its plain version or its variants")
+        results[label] = dict(max_abs_err=max_abs, library=T913_LIBRARY[name], **row)
+        del got, ref
+    # T10 through a view of H rows: the partial block's rows past H are never written
+    buf = torch.full((batch, rows + pnb.GUARD_ROWS, width, channels), float("nan"), device=dev)
+    pnb.nondiv_out_exact(x_rows, win, out=buf[:, :rows])
+    exact = torch.equal(buf[:, :rows], pnb.row_block_affine_plain(x_rows, rows, 2.0, 0.0))
+    guard = bool(torch.isnan(buf[:, rows:]).all())
+    print(f"kernel nondiv_out_exact through a view of {rows} rows: bit-equal to plain {exact}, "
+          f"the {pnb.GUARD_ROWS} guard rows past H of each image still NaN {guard}", flush=True)
+    if not (exact and guard):
+        raise SystemExit("nondiv_out_exact wrote past its output's rows or disagrees with plain")
+    results["nondiv_out_exact"]["guard_rows_untouched"] = guard
+    return results
+
+
+def run_t913_tools(dev: str = "cuda", nondiv: dict | None = None, repro: dict | None = None):
+    """Phase 15b: probe_nondiv_blocks (its main: Q1-Q4; then
+    probe_oversized_sublane_block, which the JAX script defines but never
+    calls) and repro_aot_crash in process, at their shapes (or the
+    geometries given, to rehearse on the CPU): every verdict True, both
+    shapes "PASS", every launch count exact; returns the launches."""
+    from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.tools import probe_nondiv_blocks as pnb, repro_aot_crash as rac
+
+    nondiv = nondiv or {}
+    _build.reset_launches()
+    res_nd = pnb.main(dev, **nondiv, reps=PROBE_REPS)
+    res_nd.update(pnb.probe_oversized_sublane_block(
+        dev, **{k: v for k, v in nondiv.items() if k != "rows"}, reps=PROBE_REPS))
+    res_rac = rac.main(dev, **(repro or {}), reps=PROBE_REPS)
+    launches = dict(_build.launches)
+    per = 1 + PROBE_REPS
+    want = {"nondiv_read_write": per, "nondiv_out_exact": per, "inkernel_pad_loop": per,
+            "oversized_sublane_block": per, "batched_nt": len(rac.SHAPES) * per}
+    if dev != "cuda":
+        want = {}  # the plain versions launch nothing
+    verdict = {k: v for k, v in res_nd.items() if isinstance(v, bool)}
+    answers = {k: v for k, v in res_rac.items() if isinstance(v, str)}
+    print(f"tools T9-T13: launches {launches}; probe verdicts {verdict}; repro {answers}",
+          flush=True)
+    if launches != want:
+        raise SystemExit(f"tools T9-T13 launches {launches}, expected {want}")
+    if len(verdict) != 4 or not all(verdict.values()):
+        raise SystemExit(f"a non-dividing block probe did not pass: {verdict}")
+    if len(answers) != len(rac.SHAPES) or any(v != "PASS" for v in answers.values()):
+        raise SystemExit(f"a batched-product shape did not pass: {answers}")
+    return launches
+
+
 def main():
     phase("1 device")
     import torch
@@ -1858,6 +2018,12 @@ def main():
     t_launches.update(run_t58_tools())
     print(f"phase 14 took {time.time() - t:.1f} s", flush=True)
 
+    phase("15 the tools' kernels T9-T13, probe_nondiv_blocks and repro_aot_crash")
+    t = time.time()
+    t_rows.update(check_t913_kernels())
+    t_launches.update(run_t913_tools())
+    print(f"phase 15 took {time.time() - t:.1f} s", flush=True)
+
     kernels = []
     def vith_fields(name):  # phase 12's head_dim 80 reading and vit_h region launches
         extra = {"head_dim_80": vith[name]} if name in vith else {}
@@ -1877,8 +2043,8 @@ def main():
     for name, (src, replaces) in TOOL_META.items():  # K9, K11, K12, K13
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=tool_launches[name], **tool[name], **vith_fields(name)))
-    # T1-T8: the first variant's reading, and each variant's under `variants`
-    for name, (src, replaces) in {**T_META, **T58_META}.items():
+    # T1-T13: the first variant's reading, and each variant's under `variants`
+    for name, (src, replaces) in {**T_META, **T58_META, **T913_META}.items():
         rows = {label: row for label, row in t_rows.items() if label.split()[0] == name}
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=t_launches[name], **next(iter(rows.values())),

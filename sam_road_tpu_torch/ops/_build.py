@@ -34,6 +34,7 @@ launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "samroad_ln_dense": [_P] * 6 + [_I] * 3 + [_P],
     "samroad_proj_ln_mlp_residual": [_P] * 13 + [_I] * 3 + [_P],
@@ -52,6 +53,9 @@ _SIGNATURES = {
     "samroad_relpos_attention_table": [_P] * 6 + [_I] * 5 + [_P],
     "samroad_merge_dense": [_P] * 3 + [_I] * 3 + [_P],
     "samroad_rowmax_dot": [_P] * 3 + [_I] * 7 + [_P],
+    "samroad_row_block_affine": [_P] * 2 + [_I] * 6 + [_F] * 2 + [_P],
+    "samroad_window_colsum": [_P] * 2 + [_I] * 6 + [_P],
+    "samroad_batched_nt": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 # head dims the attention kernels are instantiated at (window_attention.cu,

@@ -6,14 +6,17 @@ kernels they vary (K1 + pad, K4 on the cropped input, K2), and K9, K11, K12
 and K13 at the tools' shapes (groups bit-equal), K2, K3 and K10-K13 at
 vit_h's head_dim 80 (C 1280, 16 heads; at 256 px a 16x16 grid padded to
 28x28), the tools' kernels T1-T4 (T3 bit-equal to T2 at every G), T5 on a
-window and on the global grid, and T6-T8 at the probes' shapes, on an
-NVIDIA GPU.
+window and on the global grid, T6-T8 at the probes' shapes, and T9-T13 at
+the probes' shapes and at ragged ones (T9 / T10 bit-equal to plain, T12 to
+T11, T13's two launch shapes to each other), on an NVIDIA GPU.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
 where torch sees no GPU. This file imports neither jax nor the JAX package,
 so it also runs on the card's machine:
     python -m pytest tests/test_torch_cuda_kernels.py -q
 """
+
+import math
 
 import pytest
 import torch
@@ -25,6 +28,8 @@ from sam_road_tpu_torch.tools import (
     experiment_relpos_kernel,
     experiment_window_attn,
     probe_mosaic,
+    probe_nondiv_blocks,
+    repro_aot_crash,
 )
 
 VITH = dict(C=1280, heads=16, grid=16)  # vit_h at 256 px: head_dim 80
@@ -503,3 +508,66 @@ def test_cuda_batched_dot_finds_row_maxima_off_the_diagonal(cuda):
     ref = probe_mosaic.rowmax_dot_plain(q.float(), q.float())
     assert (ref > torch.einsum("bnc,bnc->bn", q.float(), q.float()) + 1).float().mean() > 0.9
     assert _within_tol(probe_mosaic.batched_dot(q), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C,win", [(32, 32, 256, 14), (23, 13, 100, 5)])
+def test_cuda_row_block_affine_probes_are_bit_equal_to_plain(cuda, H, W, C, win):
+    """T9 (ceil(H / win) win rows out, the rows past H 1.0) and T10 (2 x into
+    exactly H rows) on x [2, H, W, C] fp32 in blocks of win rows, the last
+    partial (and at 13 x 100 a partial column strip): bit-equal to their
+    plain versions; T10 through a view of H rows of a buffer whose rows
+    past H hold NaN leaves them NaN; one launch a call."""
+    pnb = probe_nondiv_blocks
+    x = torch.randn((2, H, W, C), generator=torch.Generator(device=cuda).manual_seed(27),
+                    device=cuda)
+    names = ("nondiv_read_write", "nondiv_out_exact")
+    before = [_build.launches[n] for n in names]
+    y9 = pnb.nondiv_read_write(x, win)
+    y10 = pnb.nondiv_out_exact(x, win)
+    buf = torch.full((2, H + pnb.GUARD_ROWS, W, C), math.nan, device=cuda)
+    pnb.nondiv_out_exact(x, win, out=buf[:, :H])
+    torch.cuda.synchronize()
+    assert [_build.launches[n] - b for n, b in zip(names, before)] == [1, 2]
+    assert torch.equal(y9, pnb.row_block_affine_plain(x, -(-H // win) * win, 1.0, 1.0))
+    assert bool((y9[:, H:] == 1).all())
+    assert torch.equal(y10, pnb.row_block_affine_plain(x, H, 2.0, 0.0))
+    assert torch.equal(buf[:, :H], y10) and bool(torch.isnan(buf[:, H:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,C,win", [(32, 256, 14), (23, 100, 5)])
+def test_cuda_window_colsum_probes_match_plain_and_are_bit_equal(cuda, W, C, win):
+    """T11 (staged, zero-padded) on x [2, win, W, C] fp32 within 1e-4 of
+    window_colsum_plain, as the JAX probe allows; T12 (masked global reads)
+    bit-equal to T11; at 23 x 100 in windows of 5 the last window column
+    and the last channel slice are partial; one launch each."""
+    pnb = probe_nondiv_blocks
+    x = torch.randn((2, win, W, C), generator=torch.Generator(device=cuda).manual_seed(28),
+                    device=cuda)
+    names = ("inkernel_pad_loop", "oversized_sublane_block")
+    before = [_build.launches[n] for n in names]
+    staged = pnb.inkernel_pad_loop(x, win)
+    masked = pnb.oversized_sublane_block(x, win)
+    torch.cuda.synchronize()
+    assert [_build.launches[n] - b for n, b in zip(names, before)] == [1, 1]
+    assert staged.shape == (2, win, -(-W // win), C)
+    assert (staged - pnb.window_colsum_plain(x, win)).abs().max().item() <= pnb.SUM_TOL
+    assert torch.equal(masked, staged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,N", [(12, 256), (3, 200)])
+def test_cuda_batched_nt_shapes_are_bit_equal_and_match_plain(cuda, heads, N):
+    """T13 on a, b [heads, N, 64] bf16 (N 200: no multiple of 16 or 64):
+    the looped and batched launch shapes bit-equal, within 2e-2 (1 + |plain|)
+    of batched_nt_plain in fp32; one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    a, b = _rn(gen, cuda, heads, N, 64), _rn(gen, cuda, heads, N, 64)
+    before = _build.launches["batched_nt"]
+    looped = repro_aot_crash.batched_nt(a, b, looped=True)
+    batched = repro_aot_crash.batched_nt(a, b, looped=False)
+    torch.cuda.synchronize()
+    assert _build.launches["batched_nt"] == before + 2
+    assert torch.equal(looped, batched)
+    assert _within_tol(looped, repro_aot_crash.batched_nt_plain(a.float(), b.float()))
