@@ -221,9 +221,12 @@ def cuda_ms(fn, reps=10, warmup=2):
 
 
 def device_ms(fn, reps: int = 50):
-    """Mean device time of the kernels one call of fn launches, in ms, from
+    """Device time of the kernels one call of fn launches, in ms, from
     torch.profiler's CUDA kernel events alone (a launch-bound kernel's
-    CUDA-event time is mostly its host-side launch); None where the
+    CUDA-event time is mostly its host-side launch): for each kernel name,
+    the mean duration of its recorded events times its launches a call
+    (events / reps, rounded; unrounded under one half), so that events the
+    profiler drops do not lower it (a drop is printed); None where the
     profiler recorded no kernel."""
     import torch
     from torch.autograd import DeviceType
@@ -235,9 +238,33 @@ def device_ms(fn, reps: int = 50):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.count == 0:
+            continue
+        per_call = round(e.count / reps) or e.count / reps
+        if isinstance(per_call, int) and e.count != per_call * reps:
+            print(f"device_ms: the profiler recorded {e.count} events of {e.key[:60]} in "
+                  f"{reps} calls (expected {per_call * reps})", flush=True)
+        total += e.self_device_time_total / e.count * per_call
+    return total / 1e3 if total > 0 else None
+
+
+def with_device_time(row: dict, fn, dev: str = "cuda") -> dict:
+    """Add to a timing row `device_ms` (the profiler's kernel time of one
+    call of fn; None off the card) and the bound's share of the CUDA-event
+    time (`bound_share`) and of the kernel time (`device_bound_share`)."""
+    d = device_ms(fn) if dev == "cuda" else None
+    row.update(device_ms=d, bound_share=row["bound_ms"] / row["ms"],
+               device_bound_share=None if d is None else row["bound_ms"] / d)
+    return row
+
+
+def fmt_device(row: dict) -> str:
+    d = "none" if row["device_ms"] is None else f"{row['device_ms']:.4f}"
+    share = "none" if row["device_bound_share"] is None else f"{row['device_bound_share']:.3f}"
+    return (f"device_ms {d} (profiler kernel events, mean of 50 calls) bound_share "
+            f"{row['bound_share']:.3f} (of ms) {share} (of device_ms)")
 
 
 def nbytes(*tensors) -> int:
@@ -421,7 +448,9 @@ def timing_row(name: str, args, out, kern, plain, fwd_bwd: bool = False, flops=N
 
 
 def check_kernels(B: int, dev: str = "cuda"):
-    """Phase 3: each kernel against its plain version at the bench shapes."""
+    """Phase 3: each kernel against its plain version at the bench shapes;
+    K2's and K3's rows also carry the profiler's kernel time and the
+    bound's share."""
     import torch
 
     from sam_road_tpu_torch.ops import attention, fused_block, fused_ln
@@ -480,9 +509,12 @@ def check_kernels(B: int, dev: str = "cuda"):
         finite = bool(torch.isfinite(got.float()).all())
         del ref, err
         row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args))
+        device = ""
+        if name in ("window_attention_rows_grid", "attention_relpos_rows"):
+            device = " " + fmt_device(with_device_time(row, lambda: kern(*args), dev))
         ok = finite and max_rel <= TOL
         print(f"kernel {name}: shape {tuple(got.shape)} max_abs_err {max_abs:.3e} "
-              f"max_rel_err {max_rel:.3e} (tol {TOL}) {fmt_times(row)} "
+              f"max_rel_err {max_rel:.3e} (tol {TOL}) {fmt_times(row)}{device} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"kernel {name} disagrees with its plain version")
@@ -1487,7 +1519,8 @@ def check_vith_kernels(B: int, dev: str = "cuda"):
     80, at its 256 px shapes (C 1280, 16 heads; B patches of a 16x16 grid
     padded to 28x28, 4 windows of 14 x 14 each; 256 global tokens): each
     within TOL of its plain version in fp32, K10 bit-equal to K2, K11-K13
-    groups 2 and 4 bit-equal to 1."""
+    groups 2 and 4 bit-equal to 1; each row with the profiler's kernel time
+    and the bound's share."""
     import torch
 
     from sam_road_tpu_torch.ops import attention, fused_block
@@ -1543,7 +1576,11 @@ def check_vith_kernels(B: int, dev: str = "cuda"):
             lambda *a: fused_block.window_attention_relpos_batched_plain(*a, win),
             split + tables),
     }
-    return check_cases({name: (name, *case, None) for name, case in cases.items()}, heads, dev)
+    rows = check_cases({name: (name, *case, None) for name, case in cases.items()}, heads, dev)
+    for name, (kern, _, args, _) in cases.items():
+        print(f"kernel {name} hd 80: "
+              f"{fmt_device(with_device_time(rows[name], lambda: kern(*args), dev))}", flush=True)
+    return rows
 
 
 def vith_overrides() -> dict:
@@ -1760,9 +1797,9 @@ def check_t58_kernels(dev: str = "cuda", windows: int = 32 * 9, win: int = 14, d
         x[..., :pm.HEAD], x[..., pm.HEAD:2 * pm.HEAD]), (rn(batch // 4, tokens, width),), [], None)
     rows = check_cases(cases, heads, dev)
     for label, (_, kern, _, args, _, _) in cases.items():
-        rows[label]["device_ms"] = device_ms(lambda: kern(*args)) if dev == "cuda" else None
-        print(f"kernel {label}: device_ms {rows[label]['device_ms']} (profiler kernel events, "
-              f"mean of 50 calls) against ms {rows[label]['ms']:.4f} (CUDA events)", flush=True)
+        row = with_device_time(rows[label], lambda: kern(*args), dev)
+        print(f"kernel {label}: {fmt_device(row)} against ms {row['ms']:.4f} (CUDA events)",
+              flush=True)
     return rows
 
 

@@ -21,8 +21,10 @@ REPO_DIR = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 
-def build_and_load(name: str, compiler: str, flags: list, sources: list):
+def build_and_load(name: str, compiler: str, flags: list, sources: list, headers=()):
     """Compile `sources` into BUILD_DIR/lib<name>-<hash>.so and load it.
+    `headers` (included by the sources) count in the hash but are not
+    compiled on their own.
 
     The sources compile at once, one compiler process each, into objects
     that one more call links. The compiler writes a temporary file
@@ -35,7 +37,7 @@ def build_and_load(name: str, compiler: str, flags: list, sources: list):
     if exe is None:
         raise RuntimeError(f"{compiler} not found: cannot build {name}")
     h = hashlib.sha256(" ".join([compiler] + flags).encode())
-    for src in sources:
+    for src in list(sources) + list(headers):
         with open(src, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -1,101 +1,106 @@
 // Global attention with decomposed relative-position bias rows: the CUDA
 // kernel behind K3 (attention_relpos_rows) of
-// sam_road_tpu_torch/ops/attention.py, and, as further modes of the same
-// loop, the tool kernels T1 (diag_attn) of
-// sam_road_tpu_torch/tools/experiment_group_window.py and T5's global case
-// (inker_attention) of sam_road_tpu_torch/tools/experiment_block_variants.py.
+// sam_road_tpu_torch/ops/attention.py (and K6's attention_relpos_rows_d
+// forward), and, as further modes of the same loop, the tool kernels T1
+// (diag_attn) of sam_road_tpu_torch/tools/experiment_group_window.py and T5's
+// global case (inker_attention) of
+// sam_road_tpu_torch/tools/experiment_block_variants.py.
 //
 // K3 replaces sam_road_tpu/ops/attention.py::attention_relpos_rows
-// (_relpos_rows_kernel). The Pallas kernel holds all N x N scores of one
-// (image, head) in VMEM (N = 1024 at 512 px: 4 MB fp32); a Hopper SM has
-// 227 KB of shared memory, so this kernel tiles the keys and keeps an
-// online softmax instead (flash attention): one block per (image x head,
-// 64-query tile), 4 warps of 16 query rows, 64-key tiles of k and v in
-// shared memory.
+// (_relpos_rows_kernel), which holds all N x N scores of one (image, head)
+// in VMEM (N = 1024 at 512 px: 4 MB fp32). A Hopper SM has 227 KB of shared
+// memory, so this kernel tiles the keys with an online softmax (flash
+// attention):
 //   s = q.k^T + bh[n, m // W] + bw[n, m % W]       (q arrives pre-scaled)
 //   running max / sum in fp32, bf16(p) . v accumulated in fp32, / sum
-// What bounds it on the H100: 2 x N^2 x 64 x 2 FLOP per (image, head) =
-// 268 MFLOP against 0.5 MB of q/k/v: compute, at the rate this simple wmma
-// (mma.sync) version reaches; the per-tile fp32 rescale of the output
-// through shared memory is its main overhead, to remove in a later PR.
-// The online tiling also works past the TPU's 1225-token VMEM limit, so
-// the fused encoder runs the 1024 px config's 4096-token grid here too (not
-// measured yet), where the JAX package switches to K5.
+//
+// What bounds it on the H100: operations. 4 N^2 hd per (image, head): 103
+// GFLOP at the bench shape (384 (image, head) pairs x 1024 tokens), 0.104 ms
+// at the bf16 tensor peak, against 0.5 MB of q/k/v a pair. Only Hopper's
+// warpgroup product (wgmma) reaches that rate, so the loop is shaped like
+// FlashAttention-3 without its warp specialisation:
+// - One block per (image x head, 128-query tile): two warpgroups of 64
+//   query rows, each warp 16 rows. A warp's q fragments are loaded once
+//   (ldmatrix) and stay in registers: both products are wgmma's
+//   register-A form (m64n64k16 for S = q.k^T, m64n{hd}k16 for p.v).
+// - 64-key k / v tiles in a 3-stage cp.async ring: tile j + 2 is in flight
+//   while tile j is multiplied. The tiles sit in shared memory in wgmma's
+//   no-swizzle layout (8 x 8 core matrices of 128 contiguous bytes, filled
+//   in order by consecutive threads), which takes head_dim 80's 160-byte
+//   rows as it takes 64's: no 128-byte swizzle to fit. k is a K-major B
+//   operand, v an MN-major (transposed) one, each behind a descriptor.
+// - The online softmax lives in registers: the accumulator gives each quad
+//   of lanes one row, so a row max or sum is two shuffles; the running max
+//   m, sum l and rescale factor are per thread, the output is rescaled in
+//   its accumulator, and p becomes bf16 A fragments in registers (wgmma's
+//   C layout is its register-A layout). exp2 with log2(e) folded into the
+//   fp32 scale and the bias. The output is divided by l and stored as bf16
+//   pairs at the end.
+// - The block's bias rows are staged once as fp32 in shared memory,
+//   column-major ([Hg + Wg][128 + 4]: a quad's 8 rows and 4 columns fall
+//   in 32 distinct banks); a score adds two shared-memory reads. With
+//   Wg % 8 == 0 the 8 keys of an n8 tile share one grid row, so no score
+//   pays a division (MODE_DIAG walks window, row and column by 8 keys a
+//   tile).
+// - Shared memory: q 18 KB, the ring 48 KB, the bias columns 33 KB at
+//   head_dim 64 and a 32 x 32 grid (99 KB a block).
 //
 // Head dims: instantiated at 64 (ViT-B, vit_l) and 80 (vit_h: at 256 px its
-// global blocks are N = 256 tokens, 16 x 16); the tiles' row strides follow
-// the head dim, the score and probability tiles the 64-key tile.
+// global blocks are N = 256 tokens, 16 x 16). The q tile's rows are hd + 8
+// bf16 apart (an odd number of 16-byte chunks: conflict-free ldmatrix).
 //
 // T1 (MODE_DIAG) replaces tools/experiment_group_window.py::diag_attn
 // (_diag_kernel): g windows of N tokens folded into the rows of one product,
-// qkv [nG, g N, 3C] in the window layout (the stacking is a reshape done
-// outside), bias rows bhw [nG, heads, g N, 2 win] ([bh | bw], bf16). Per
-// (group, head) every query meets every one of the g N keys, as the TPU
-// kernel's one (g N) x (g N) product does:
+// qkv [nG, g N, 3C] in the window layout, bias rows bhw [nG, heads, g N,
+// 2 win] ([bh | bw], bf16). Per (group, head) every query meets every one of
+// the g N keys, as the TPU kernel's one (g N) x (g N) product does:
 //   s = q.k^T * scale + bh[n, (m % N) // win] + bw[n, (m % N) % win]
 //   if the key's window differs from the query's: s = -1e30
-// then fp32 softmax and p.v. The cross-window scores are computed and
-// masked, not skipped: what folding g windows into M costs is the tool's
-// question. g N is no multiple of 64, so the last query and key tiles are
-// ragged (rows past g N load as zeros, keys past it are -inf). The online
-// softmax rounds p to bf16 before it is normalised, where _diag_kernel
-// normalises first: equal within bf16 rounding. Bound: its HBM bytes (385 MB
-// at the tool's shapes, 0.115 ms) up to g = 2, its g-fold score work (34 g
-// GFLOP) beyond.
+// The cross-window scores are computed and masked, not skipped: what folding
+// g windows into M costs is the tool's question. g N is no multiple of the
+// tiles, so the last query and key tiles are ragged (rows past g N load as
+// zeros, keys past it are -inf; a tile wholly past g N leaves m as it was).
+// The online softmax rounds p to bf16 before it is normalised, where
+// _diag_kernel normalises first: equal within bf16 rounding. Its masks are
+// selects, and every warp reconverges (__syncwarp) before wgmma.fence: a
+// first build with branches there gave wrong outputs on every row at every
+// g on the card, as wgmma's .aligned forms need converged warps. Bound: its HBM
+// bytes (385 MB at the tool's shapes, 0.115 ms) up to g = 2, its g-fold
+// score work (34 g GFLOP) beyond.
 //
 // T5's global case (MODE_TABLE) replaces
 // tools/experiment_block_variants.py::inker_attention (make_inker_kernel)
 // at N = 1024 tokens (a 32 x 32 grid): K3's function with the bias rows built
 // in the kernel from the expanded tables rh [N, Hg, hd], rw [N, Wg, hd]
-// (bf16). Each warp first builds its 16 query rows' bias rows in fp32 into
-// shared memory after the block's other buffers (16 x (Hg + Wg) floats a
-// warp, 4 KB at a 32 x 32 grid):
+// (bf16), from the unscaled q in shared memory, never rounded:
 //   bh[n, a] = sum_c q[n, c] rh[n, a, c],  bw[n, a] = sum_c q[n, c] rw[n, a, c]
-// from the unscaled q, never rounded; then K3's loop with
-//   s = q.k^T * scale + bh[n, m // Wg] + bw[n, m % Wg]
-// (q arrives unscaled; the scale is a post-product fp32 multiply, as
-// MODE_DIAG's). The tables are 4 MiB each at N 1024; a block reads its 64
-// rows' 256 KB slice of each once, from L2 (they are shared by every image
-// and head). The Pallas body normalises p before p.v; the online softmax
-// divides after: equal within bf16 rounding, as T1's. Bound at the tool's
-// shapes (384 (image, head) pairs): 106 GFLOP, 0.107 ms of operations.
+// then K3's loop with s = q.k^T * scale + bh[n, m // Wg] + bw[n, m % Wg]. A
+// block reads its 128 rows' 1 MB slice of the tables once, from L2 (they
+// are shared by every image and head). The Pallas body normalises p before
+// p.v; the online softmax divides after: equal within bf16 rounding. Bound
+// at the tool's shapes (384 (image, head) pairs): 106 GFLOP, 0.107 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "mma_bf16.cuh"
+
+using namespace samroad_mma;
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64;
+constexpr int BQ = 128, BKV = 64, STAGES = 3;
 constexpr int WARPS = BQ / 16;
 constexpr int THREADS = WARPS * 32;
-constexpr int LDP = BKV + 8;   // bf16 probability row stride
+constexpr int SMEM_MAX = 232448;  // a block's dynamic shared memory on Hopper
 
 enum Mode { MODE_RELPOS = 0, MODE_DIAG = 1, MODE_TABLE = 2 };
 constexpr int TABLE_W = 64;    // MODE_TABLE: bias-row floats per query row (Hg + Wg at most)
-
-template <int HD>
-struct Smem {
-  static constexpr int LDT = HD + 8;                     // bf16 tile row stride
-  static constexpr int LDF = (HD > BKV ? HD : BKV) + 4;  // fp32 rows: BKV scores, then HD outputs
-  struct Warp {
-    float S[16][LDF];          // scores, then the (p . v) of one tile
-    float O[16][LDF];          // running output
-    bf16 P[16][LDP];           // probabilities of one tile
-    float m[16], l[16], alpha[16];
-  };
-  static_assert(sizeof(Warp) % 32 == 0 && (3 * BQ * LDT * sizeof(bf16)) % 32 == 0,
-                "wmma tiles need 32-byte alignment");
-  bf16 Q[BQ][LDT];
-  bf16 K[BKV][LDT];
-  bf16 V[BKV][LDT];
-  Warp w[WARPS];
-};
+// the fp32 bias rows sit column-major, column c of row r at c * TAB_LD + r:
+// a quad's 8 rows and 4 columns fall in 32 distinct banks
+constexpr int TAB_LD = BQ + 4;
 
 struct Args {
   const bf16 *q, *k, *v;     // MODE_DIAG: k = q + C, v = q + 2C (one qkv tensor)
@@ -107,15 +112,43 @@ struct Args {
   float scale;               // MODE_DIAG, MODE_TABLE
 };
 
-// rows [0, 64) of a tile, `stride` elements apart; rows from `valid` on are zero
+// fp32 bias values per query row: [bh | bw]
+template <int MODE>
+__host__ __device__ int bias_width(const Args& a) {
+  return MODE == MODE_DIAG ? 2 * a.Wg : a.Hg + a.Wg;
+}
+
+// dynamic shared memory: q [BQ][HD + 8], k and v [STAGES][BKV * HD]
+// (bf16), then the fp32 bias columns [bias_width][TAB_LD]
+template <int HD, int MODE>
+__host__ __device__ int smem_bytes(const Args& a) {
+  return (BQ * (HD + 8) + 2 * STAGES * BKV * HD) * (int)sizeof(bf16) +
+         TAB_LD * bias_width<MODE>(a) * 4;
+}
+
+// rows [0, BQ) of the q tile, row-major HD + 8 apart (for ldmatrix), by
+// cp.async; rows from `valid` on are zero-filled
 template <int HD>
-__device__ __forceinline__ void load_tile(bf16 (*dst)[Smem<HD>::LDT], const bf16* src,
-                                          int64_t stride, int valid, int tid) {
-  for (int e = tid; e < 64 * (HD / 8); e += THREADS) {
+__device__ __forceinline__ void load_q_tile(bf16* dst, const bf16* src, int64_t stride,
+                                            int valid) {
+  for (int e = threadIdx.x; e < BQ * (HD / 8); e += THREADS) {
     const int r = e / (HD / 8), c = (e % (HD / 8)) * 8;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) u = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = u;
+    const bool ok = r < valid;
+    cp_async<16>(dst + r * (HD + 8) + c, ok ? src + r * stride + c : src, ok);
+  }
+}
+
+// a 64-row k or v tile in wgmma's no-swizzle layout: 16-byte chunk c of row
+// r at element ((r / 8) (HD / 8) + c) 64 + (r % 8) 8, so consecutive
+// threads fill consecutive shared-memory chunks; rows from `valid` on are
+// zero-filled
+template <int HD>
+__device__ __forceinline__ void load_kv_tile(bf16* dst, const bf16* src, int64_t stride,
+                                             int valid) {
+  for (int e = threadIdx.x; e < BKV * (HD / 8); e += THREADS) {
+    const int r = (e >> 3) / (HD / 8) * 8 + (e & 7), c = (e >> 3) % (HD / 8) * 8;
+    const bool ok = r < valid;
+    cp_async<16>(dst + e * 8, ok ? src + r * stride + c : src, ok);
   }
 }
 
@@ -139,19 +172,37 @@ __device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
   return acc;
 }
 
-// dynamic shared memory of one block: Smem<HD>, then MODE_TABLE's bias rows
-template <int HD, int MODE>
-constexpr int smem_bytes() {
-  return (int)sizeof(Smem<HD>) + (MODE == MODE_TABLE ? WARPS * 16 * TABLE_W * 4 : 0);
-}
+// MODE_DIAG: a key's place, window w, row i, column j, advanced by 8 keys
+// at a time; rows wrap at I (MODE_DIAG's window side, else never).
+struct KeyPos {
+  int w, i, j;
+  __device__ __forceinline__ void advance(int si, int sj, int I, int J) {
+    j += sj;
+    i += si;
+    if (j >= J) {
+      j -= J;
+      ++i;
+    }
+    if (i >= I) {
+      i -= I;
+      ++w;
+    }
+  }
+};
 
 template <int HD, int MODE>
 __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  using Sm = Smem<HD>;
-  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
-  typename Sm::Warp& ws = sm.w[threadIdx.x >> 5];
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LD = HD + 8;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  constexpr int KV = BKV * HD;  // bf16 elements of a k or v tile
+  bf16* Ks = Qs + BQ * LD;  // [STAGES][KV]
+  bf16* Vs = Ks + STAGES * KV;
+  float* tab = reinterpret_cast<float*>(Vs + STAGES * KV);
+  const int nb = bias_width<MODE>(a);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: row of matrix lm
   const int64_t bhid = blockIdx.y;          // image x head, or group x head
   const int q0 = blockIdx.x * BQ;
   const int N = a.N;
@@ -168,147 +219,206 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
     stride = out_stride = HD;
   }
 
-  load_tile<HD>(sm.Q, a.q + base + q0 * stride, stride, N - q0, tid);
-  for (int e = lane; e < 16 * HD; e += 32) ws.O[e / HD][e % HD] = 0.f;
-  // MODE_TABLE: this warp's bias rows [16][Hg + Wg], fp32, one (row, a) a lane
-  float(*tab)[TABLE_W] =
-      reinterpret_cast<float(*)[TABLE_W]>(smem_raw + sizeof(Sm)) + warp * 16;
-  if constexpr (MODE == MODE_TABLE) {
-    __syncthreads();  // the q tile is in
-    const int nb = a.Hg + a.Wg;
-    for (int e = lane; e < 16 * nb; e += 32) {
+  // the q tile, then the first STAGES - 1 k / v tiles, one group each
+  load_q_tile<HD>(Qs, a.q + base + q0 * stride, stride, N - q0);
+  cp_async_commit();
+  const int nt = (N + BKV - 1) / BKV;
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < nt) {
+      load_kv_tile<HD>(Ks + t * KV, a.k + base + (int64_t)t * BKV * stride, stride,
+                           N - t * BKV);
+      load_kv_tile<HD>(Vs + t * KV, a.v + base + (int64_t)t * BKV * stride, stride,
+                           N - t * BKV);
+    }
+    cp_async_commit();
+  }
+  // the bias rows of the block's queries, fp32; rows past N repeat the last
+  if constexpr (MODE == MODE_RELPOS) {
+    for (int e = tid; e < BQ * nb; e += THREADS) {
       const int r = e / nb, c = e % nb;
-      const int64_t n = q0 + warp * 16 + r;
-      const bf16* row = c < a.Hg ? a.bh + (n * a.Hg + c) * HD : a.bw + (n * a.Wg + c - a.Hg) * HD;
-      tab[r][c] = dot_bf16<HD>(&sm.Q[warp * 16 + r][0], row);
+      const int64_t n = bhid * N + min(q0 + r, N - 1);
+      tab[c * TAB_LD + r] =
+          __bfloat162float(c < a.Hg ? a.bh[n * a.Hg + c] : a.bw[n * a.Wg + c - a.Hg]);
     }
-    __syncwarp();
+  } else if constexpr (MODE == MODE_DIAG) {
+    for (int e = tid; e < BQ * nb; e += THREADS) {
+      const int r = e / nb, c = e % nb;
+      const int64_t n = bhid * N + min(q0 + r, N - 1);
+      tab[c * TAB_LD + r] = __bfloat162float(a.bh[n * nb + c]);
+    }
   }
-  if (lane < 16) {
-    ws.m[lane] = -INFINITY;
-    ws.l[lane] = 0.f;
+  cp_async_wait<STAGES - 1>();  // the q tile has landed
+  __syncthreads();
+  if constexpr (MODE == MODE_TABLE) {
+    // tab[r][c] = q[r] . (c < Hg ? rh[n, c] : rw[n, c - Hg]), a dot a thread
+    for (int e = tid; e < BQ * nb; e += THREADS) {
+      const int r = e / nb, c = e % nb;
+      const int64_t n = min(q0 + r, N - 1);
+      tab[c * TAB_LD + r] = dot_bf16<HD>(Qs + r * LD,
+                            c < a.Hg ? a.bh + (n * a.Hg + c) * HD : a.bw + (n * a.Wg + c - a.Hg) * HD);
+    }
   }
 
-  for (int k0 = 0; k0 < N; k0 += BKV) {
-    __syncthreads();  // previous k/v tiles consumed
-    load_tile<HD>(sm.K, a.k + base + k0 * stride, stride, N - k0, tid);
-    load_tile<HD>(sm.V, a.v + base + k0 * stride, stride, N - k0, tid);
-    __syncthreads();
+  // this warp's q fragments (rows warp * 16 ..)
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int c = 0; c < HD / 16; ++c)
+    ldmatrix_x4(qa[c], Qs + (warp * 16 + (lm & 1) * 8 + lr) * LD + c * 16 + (lm >> 1) * 8);
 
+  const float sl2 = (MODE == MODE_RELPOS ? 1.f : a.scale) * LOG2E;
+  const int rq[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's two rows in the tile
+  const int hoff = MODE == MODE_DIAG ? a.Wg : a.Hg;  // bw's offset in a bias row
+  // MODE_DIAG: the query's window (rows past N: the last row's) and the
+  // place of key 2tq, advanced 8 keys an n8 tile. Else Wg % 8 == 0: the 8
+  // keys of n8 tile t' share grid row ki and start at column kjb.
+  const int Nw = a.Hg, I = a.Wg, J = a.Wg;
+  int qw[2] = {0, 0};
+  KeyPos kp{0, (2 * tq) / J, (2 * tq) % J};
+  if constexpr (MODE == MODE_DIAG) {
 #pragma unroll
-    for (int kb = 0; kb < BKV / 16; ++kb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+    for (int h = 0; h < 2; ++h) qw[h] = min(q0 + rq[h], N - 1) / Nw;
+  }
+  const int si = 8 / J, sj = 8 % J;
+  int ki = 0, kjb = 0;
+
+  float o[HD / 2];  // the warpgroup's p . v accumulator: n8 tile d at o[4d ..]
 #pragma unroll
-      for (int d = 0; d < HD; d += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, &sm.Q[warp * 16][d], Sm::LDT);
-        wmma::load_matrix_sync(fb, &sm.K[kb * 16][d], Sm::LDT);
-        wmma::mma_sync(acc, fa, fb, acc);
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  constexpr uint32_t CORE = 128, ROW8 = HD / 8 * 128;  // byte strides of core matrices
+
+  for (int j = 0; j < nt; ++j) {
+    cp_async_wait<STAGES - 2>();  // tile j has landed
+    fence_proxy_async();          // ... and is visible to wgmma
+    __syncthreads();              // for every thread; tile j - 1's stage is consumed
+    {
+      const int jn = j + STAGES - 1;
+      if (jn < nt) {
+        const int st = jn % STAGES;
+        load_kv_tile<HD>(Ks + st * KV, a.k + base + (int64_t)jn * BKV * stride, stride,
+                             N - jn * BKV);
+        load_kv_tile<HD>(Vs + st * KV, a.v + base + (int64_t)jn * BKV * stride, stride,
+                             N - jn * BKV);
       }
-      wmma::store_matrix_sync(&ws.S[0][kb * 16], acc, Sm::LDF, wmma::mem_row_major);
+      cp_async_commit();
     }
-    __syncwarp();
+    const bf16* Kt = Ks + (j % STAGES) * KV;
+    const bf16* Vt = Vs + (j % STAGES) * KV;
 
-    for (int r = 0; r < 16; ++r) {
-      const int64_t n = q0 + warp * 16 + r;
-      float s[BKV / 32];
-      float mx = -INFINITY;
-      if constexpr (MODE == MODE_DIAG) {
-        // rows past g N (a ragged query tile) read the last row's bias
-        const int64_t nb = n < N ? n : N - 1;
-        const bf16* bhw = a.bh + (bhid * N + nb) * 2 * a.Wg;
-        const int qwin = (int)(nb / a.Hg);
+    // S = q . k^T: k is B, K-major (d contiguous); step c takes d chunks 2c, 2c + 1
+    float s[BKV / 2];  // n8 tile t at s[4t ..]
 #pragma unroll
-        for (int t = 0; t < BKV / 32; ++t) {
-          const int m = lane + 32 * t, key = k0 + m;
-          float v = -INFINITY;  // past g N: not a key
-          if (key < N) {
-            v = -1e30f;        // another window's key
-            if (key / a.Hg == qwin) {
-              const int kk = key % a.Hg;
-              v = ws.S[r][m] * a.scale + (__bfloat162float(bhw[kk / a.Wg]) +
-                                          __bfloat162float(bhw[a.Wg + kk % a.Wg]));
-            }
+    for (int i = 0; i < BKV / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    __syncwarp();  // wgmma.fence and wgmma are .aligned: the warp must be converged
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c)
+      wgmma_rs<BKV, 0>(s, qa[c], wgmma_desc(Kt + c * 2 * 64, CORE, ROW8));
+    wgmma_commit_and_wait();
+    fence_regs(s);
+
+    // bias and mask in the log2 domain
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < BKV / 8; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* row = tab + rq[h];  // column c at row[c * TAB_LD]
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = s[4 * t + 2 * h + e];
+          if constexpr (MODE == MODE_DIAG) {  // selects, no branch: see __syncwarp below
+            const int key = j * BKV + t * 8 + 2 * tq + e;
+            KeyPos p = kp;
+            if (e) p.advance(0, 1, I, J);
+            const float sv =
+                fmaf(v, sl2, (row[p.i * TAB_LD] + row[(hoff + p.j) * TAB_LD]) * LOG2E);
+            v = key >= N ? -INFINITY         // past g N: not a key
+                : p.w != qw[h] ? -1e30f      // another window's key
+                : sv;
+          } else {
+            v = fmaf(v, sl2,
+                     (row[ki * TAB_LD] + row[(hoff + kjb + 2 * tq + e) * TAB_LD]) * LOG2E);
           }
-          s[t] = v;
-          mx = fmaxf(mx, s[t]);
+          mx[h] = fmaxf(mx[h], v);
         }
-      } else if constexpr (MODE == MODE_TABLE) {
-#pragma unroll
-        for (int t = 0; t < BKV / 32; ++t) {
-          const int m = lane + 32 * t, key = k0 + m;
-          s[t] = ws.S[r][m] * a.scale + tab[r][key / a.Wg] + tab[r][a.Hg + key % a.Wg];
-          mx = fmaxf(mx, s[t]);
-        }
+      }
+      if constexpr (MODE == MODE_DIAG) {
+        kp.advance(si, sj, I, J);
       } else {
-        const bf16* bhr = a.bh + (bhid * N + n) * a.Hg;
-        const bf16* bwr = a.bw + (bhid * N + n) * a.Wg;
-#pragma unroll
-        for (int t = 0; t < BKV / 32; ++t) {
-          const int m = lane + 32 * t, key = k0 + m;
-          s[t] = ws.S[r][m] + __bfloat162float(bhr[key / a.Wg]) +
-                 __bfloat162float(bwr[key % a.Wg]);
-          mx = fmaxf(mx, s[t]);
+        kjb += 8;
+        if (kjb == J) {
+          kjb = 0;
+          ++ki;
         }
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = ws.m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < BKV / 32; ++t) {
-        const float p = expf(s[t] - m_new);
-        sum += p;
-        ws.P[r][lane + 32 * t] = __float2bfloat16_rn(p);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      __syncwarp();
-      if (lane == 0) {
-        const float al = expf(m_old - m_new);
-        ws.alpha[r] = al;
-        ws.l[r] = ws.l[r] * al + sum;
-        ws.m[r] = m_new;
-      }
-      __syncwarp();
     }
-    __syncwarp();
 
+    // online softmax: new max, rescale, p
+    float alpha[2];
 #pragma unroll
-    for (int d = 0; d < HD; d += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h]);
+      const float mu = mn == -INFINITY ? 0.f : mn;  // no key yet: keep -inf - -inf out
+      alpha[h] = ex2(m[h] - mu);
+      m[h] = mn;
+      mx[h] = mu;
+      l[h] *= alpha[h];
+    }
 #pragma unroll
-      for (int kb = 0; kb < BKV / 16; ++kb) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, &ws.P[0][kb * 16], LDP);
-        wmma::load_matrix_sync(fb, &sm.V[kb * 16][d], Sm::LDT);
-        wmma::mma_sync(acc, fa, fb, acc);
+    for (int t = 0; t < BKV / 8; ++t) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[4 * t + i] = ex2(s[4 * t + i] - mx[i >> 1]);
+        l[i >> 1] += s[4 * t + i];
       }
-      wmma::store_matrix_sync(&ws.S[0][d], acc, Sm::LDF, wmma::mem_row_major);
     }
-    __syncwarp();
-    for (int e = lane; e < 16 * HD; e += 32) {
-      const int r = e / HD, d = e % HD;
-      ws.O[r][d] = ws.O[r][d] * ws.alpha[r] + ws.S[r][d];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // p . v: p's A fragment of keys 16kk.. is C tiles 2kk (cols 2tq) and
+    // 2kk + 1 (+8); v is B, MN-major (d contiguous), transposed
+    uint32_t pa[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
+    fence_regs(o);
     __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_rs<HD, 1>(o, pa[kk], wgmma_desc(Vt + kk * 2 * (HD / 8) * 64, ROW8, CORE));
+    wgmma_commit_and_wait();
+    fence_regs(o);
   }
 
-  for (int e = lane; e < 16 * HD; e += 32) {
-    const int r = e / HD, d = e % HD;
-    const int64_t n = q0 + warp * 16 + r;
-    if (n < N) a.out[out_base + n * out_stride + d] = __float2bfloat16_rn(ws.O[r][d] / ws.l[r]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int n = q0 + rq[h];
+    if (n < N) {
+      const float f = 1.f / l[h];
+      bf16* dst = a.out + out_base + n * out_stride + 2 * tq;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d)
+        *reinterpret_cast<uint32_t*>(dst + d * 8) =
+            pack_bf16(o[4 * d + 2 * h] * f, o[4 * d + 2 * h + 1] * f);
+    }
   }
 }
 
 template <int HD, int MODE>
 int launch(const Args& a, int BH, cudaStream_t stream) {
-  const int bytes = smem_bytes<HD, MODE>();
+  const int bytes = smem_bytes<HD, MODE>(a);
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(relpos_attention_kernel<HD, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
@@ -329,12 +439,12 @@ int launch_hd(const Args& a, int hd, int BH, cudaStream_t stream) {
 extern "C" {
 
 // q (pre-scaled), k, v, out: [B*heads, N, hd] bf16, hd 64 or 80; bh
-// [B*heads, N, Hg], bw [B*heads, N, Wg] bf16 with N == Hg * Wg and
-// N % 64 == 0.
+// [B*heads, N, Hg], bw [B*heads, N, Wg] bf16 with N == Hg * Wg,
+// N % 64 == 0 and Wg % 8 == 0.
 int samroad_relpos_attention(const void* q, const void* k, const void* v,
                              const void* bh, const void* bw, void* out, int BH,
                              int N, int Hg, int Wg, int hd, void* stream) {
-  if (N != Hg * Wg || N % BQ || BH <= 0) return (int)cudaErrorInvalidValue;
+  if (N != Hg * Wg || N % BKV || Wg % 8 || BH <= 0) return (int)cudaErrorInvalidValue;
   Args a{reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
          reinterpret_cast<const bf16*>(v), reinterpret_cast<const bf16*>(bh),
          reinterpret_cast<const bf16*>(bw), reinterpret_cast<bf16*>(out), N, Hg, Wg, 0, 0, 1.f};
@@ -346,7 +456,7 @@ int samroad_relpos_attention(const void* q, const void* k, const void* v,
 // scale 1 / sqrt(head_dim).
 int samroad_diag_attention(const void* qkv, const void* bhw, void* out, int nG, int g, int C,
                            int heads, int win, void* stream) {
-  if (nG <= 0 || g <= 0 || heads <= 0 || C % heads || win <= 0) return (int)cudaErrorInvalidValue;
+  if (nG <= 0 || g <= 0 || heads <= 0 || C % heads || win < 3) return (int)cudaErrorInvalidValue;
   const int hd = C / heads, Nw = win * win;
   const bf16* p = reinterpret_cast<const bf16*>(qkv);
   Args a{p, p + C, p + 2 * C, reinterpret_cast<const bf16*>(bhw), nullptr,
@@ -356,11 +466,11 @@ int samroad_diag_attention(const void* qkv, const void* bhw, void* out, int nG, 
 
 // T5 global: q (unscaled), k, v, out [BH, N, hd] bf16, hd 64 or 80; rh
 // [N, Hg, hd], rw [N, Wg, hd] bf16 (the expanded rel-pos tables) with
-// N == Hg * Wg, N % 64 == 0 and Hg + Wg <= 64; scale 1 / sqrt(hd).
+// N == Hg * Wg, N % 64 == 0, Wg % 8 == 0 and Hg + Wg <= 64; scale 1 / sqrt(hd).
 int samroad_relpos_attention_table(const void* q, const void* k, const void* v,
                                    const void* rh, const void* rw, void* out, int BH, int N,
                                    int Hg, int Wg, int hd, void* stream) {
-  if (N != Hg * Wg || N % BQ || Hg + Wg > TABLE_W || BH <= 0 || hd <= 0)
+  if (N != Hg * Wg || N % BKV || Wg % 8 || Hg + Wg > TABLE_W || BH <= 0 || hd <= 0)
     return (int)cudaErrorInvalidValue;
   Args a{reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
          reinterpret_cast<const bf16*>(v), reinterpret_cast<const bf16*>(rh),

@@ -2,144 +2,143 @@
 // kernels behind K2 / K10 (window_attention_rows_grid) and K11-K13
 // (window_attention_rows, window_attention_relpos,
 // window_attention_relpos_batched) of sam_road_tpu_torch/ops/fused_block.py,
-// and the tools' T2 / T3 (experiment_window_attn.py) and T4
-// (experiment_relpos_kernel.py) of sam_road_tpu_torch/tools.
+// and the tools' T2 / T3 (experiment_window_attn.py), T4
+// (experiment_relpos_kernel.py) and T5 on a window
+// (experiment_block_variants.py) of sam_road_tpu_torch/tools.
 //
 // K2 replaces sam_road_tpu/ops/fused_block.py::window_attention_rows_grid at
 // its default granularity (_window_attn_rows_grid_kernel + _win_attn_body).
-// One block per (image, window, head), as one Pallas program per (image,
-// window) looped over heads. q, k and v are read with strides straight out
-// of the bias-free qkv grid [B, Hp, Wp, 3C]; the qkv bias is added to every
-// token, so the window-padding tokens become exactly `bias` (SAM's zero pad
-// after norm1). The output is written back in grid layout [B, Hp, Wp, C].
-//
-// What bounds it on the H100: per block only 2 x 196 x 196 x 64 x 2 = 9.8
-// MFLOP against 2 x 196 x 64 x 4 x 2 bytes, so the card is bound by latency
-// and shared-memory traffic, not by HBM or the tensor cores. The design
-// keeps every intermediate in shared memory: the 196 tokens are padded to
-// Np = 208 rows (13 strips of 16) with the pad KEYS masked to -inf -- not
-// to be confused with the window-padding tokens, which are real keys -- and
-// each of 4 warps walks query strips of 16:
+// One block per (image, window, head). q, k and v are read with strides
+// straight out of the bias-free qkv grid [B, Hp, Wp, 3C]; the qkv bias is
+// added to every token of the window, so the window-padding tokens become
+// exactly `bias` (SAM's zero pad after norm1). The output is written back in
+// grid layout [B, Hp, Wp, C]: no partition or unpartition pass.
 //   s = q.k^T * scale + bh[n, i'] + bw[n, j']     (fp32, key n' = (i', j'))
 //   p = exp(s - max), l = sum p,  out = (bf16(p) . v) / l
-// the score strip never leaves shared memory (a full 196 x 196 fp32 score
-// tile would be 154 KB). Products use nvcuda::wmma bf16 fragments with fp32
-// accumulation. The scale is a post-product fp32 multiply, the JAX body's
-// non-merged branch, which is exact for every head_dim; at a power of two
-// it equals the merged branch's pre-scaled q bit for bit.
 //
-// Head dims: the per-window body is attend<DQK, DV, BIAS, NORM_FIRST>, with
-// the q/k and the v widths as template parameters. Every window kernel is
-// instantiated at head_dim 64 (ViT-B, vit_l) and 80 (vit_h: 1280 / 16); at
-// 80 the q/k/v rows are 88 bf16 apart in shared memory (16-byte rows), and
-// the layout takes 192 KB (216 KB with K12 / K13's fp32 bias rows) of the
-// 227 KB a block may use. Another head_dim has no instance and is refused.
+// What bounds it on the H100: bytes. At the bench shape (3456 (window,
+// head) pairs, head_dim 64) it moves 385 MB (0.115 ms at 3.35 TB/s) against
+// 34 GFLOP (0.034 ms at the bf16 tensor peak), so mma.sync is enough and the
+// work is in latency and shared-memory traffic. The design (FlashAttention-2
+// style, but the whole 196-key row at once):
+// - Register-resident attention. Each of a block's 4 warps owns 16-query
+//   strips (196 tokens padded to Np = 208 rows, 13 strips). A strip's q
+//   comes from global memory straight into mma A fragments (each q element
+//   is read once, so shared memory would only add a trip). Its scores
+//   against all Np keys stay in registers: 26 n8 tiles of
+//   mma.sync.m16n8k16 (bf16 operands, fp32 accumulation), 104 floats a
+//   thread. Scale, bias, the pad-key mask (keys 196..207 are exactly -inf),
+//   row max and row sum are computed there; a row lives on one quad of
+//   lanes, so each reduction is two shuffles. p becomes bf16 A fragments in
+//   registers (the C layout of one product is the A layout of the next) and
+//   p . v accumulates in registers, stored from them as bf16 pairs. As the
+//   whole row is in registers before p is rounded, both orders keep their
+//   meaning: NORM_FIRST rounds p / l, then p . v (K11-K13, T4, T5); else
+//   p . v, then / l (K2, K10, T2 / T3).
+// - exp2: log2(e) is folded into the fp32 scale and the bias, the same
+//   arithmetic in every mode.
+// - Shared memory holds this (window, head)'s k and v (rows D + 8 bf16
+//   apart: an odd number of 16-byte chunks, so ldmatrix is conflict-free)
+//   and its bias rows: bf16 [N, win] twice (BIAS_ROWS, copied as they are),
+//   or fp32 [N, 2 win] built here (BIAS_TABLE). No score or probability
+//   strip: at head_dim 64 a block takes 70 KB (80 KB at 80), so two to three
+//   blocks (8-12 warps) stay resident on an SM, against one block of 4
+//   warps and 172-216 KB before.
+// - Loads are cp.async (16 bytes; 8 for T2 / T3's 184-byte q/k rows) with
+//   zero-fill for the pad rows. A block that loops over items (MODE_ROLLED,
+//   MODE_GBATCH, K11-K13's `group`, T3's G) keeps one shared-memory stage
+//   and issues the next item's copies once the current item's products are
+//   done: the two or three blocks resident on an SM hide each other's
+//   loads, where a second stage to prefetch into would double a block's
+//   shared memory and leave one block an SM.
+//   K2's qkv bias is added in a pass over the landed k / v tiles (and to q
+//   in registers).
+//
+// Structure: one per-item body (attend_strips, looped by attend_items) whose arithmetic
+// order does not depend on the mode, so every mode that shares an instance
+// gives bit-equal outputs (K10 = K2, K11-K13 at every group, T3 = T2).
+//
+// Head dims: every window kernel has instances at head_dim 64 (ViT-B,
+// vit_l) and 80 (vit_h: 1280 / 16); T2 / T3 at q/k width 96 (92
+// zero-padded) and v width 64. Windows up to 14 x 14 (SAM's): the score
+// strip is sized for Np <= 208; a larger window is refused.
 //
 // K10: the rolled_rows / group_batch granularities of the same function
-// (_window_attn_rows_grid_rolled_kernel, _window_attn_rows_grid_gbatch_kernel)
-// are choices of how blocks map to work, over the same per-window code
-// (attend), so their outputs are bit-equal to K2's:
+// (_window_attn_rows_grid_rolled_kernel, _window_attn_rows_grid_gbatch_kernel):
 //   MODE_WINDOW  one block per (image, window, head)             (K2)
 //   MODE_ROLLED  one block per (image, window row, head), looping over the
 //                row's nJ windows
 //   MODE_GBATCH  one block per (image group, window, head), looping over the
 //                group's G images
-// On the TPU they cut the program count of a latency-bound dispatch. Here
-// nothing is shared across the loop's iterations (each window reloads its
-// q/k/v), so they only trade parallelism for fewer, longer blocks.
 //
-// K11-K13 are modes of the same per-window code that differ from K2 in where
-// the tokens live, where the bias rows come from and when p is normalised;
-// each is bound like K2 by latency and shared memory (their HBM bound is
-// 0.10-0.12 ms at nW = 288 windows of 196 tokens, C = 768, 12 heads):
+// K11-K13 differ from K2 in where the tokens live, where the bias rows come
+// from and when p is normalised (their HBM bound is 0.10-0.12 ms at nW = 288
+// windows of 196 tokens, C = 768, 12 heads):
 //   K11 window_attention_rows (replaces fused_block.py::window_attention_rows,
-//       _window_attn_rows_kernel): the materialised window layout
-//       qkv [nW, N, 3C] with the bias already in, bias rows [nW, H, N, win]
-//       bf16, output [nW, N, C];
+//       _window_attn_rows_kernel): qkv [nW, N, 3C] with the bias already in,
+//       bias rows [nW, H, N, win] bf16, output [nW, N, C];
 //   K12 window_attention_relpos (replaces fused_block.py::
 //       window_attention_relpos, _window_attn_kernel): K11's layout, the bias
 //       rows built in the kernel from the expanded tables rh, rw [N, win, hd]:
-//       bh[n, a] = sum_c q[n, c] rh[n, a, c] in fp32 into shared memory, never
-//       rounded to bf16;
+//       bh[n, a] = sum_c q[n, c] rh[n, a, c] in fp32, never rounded;
 //   K13 window_attention_relpos_batched (replaces fused_block.py::
 //       window_attention_relpos_batched, _window_attn_batched_kernel): K12's
-//       function on head-split q, k, v [nW, H, N, hd] -> [nW, H, N, hd]. The
-//       TPU pads 196 tokens to 256 with -1e30 keys for lane alignment; those
-//       keys contribute exactly 0, and here the 208-row layout's -inf pad keys
-//       do the same, so no padded copy is made.
-// All three normalise p before p.v: p = exp(s - max) / l, rounded to bf16,
-// then p.v (K2 divides after the product, so K11 equals K2 only within bf16
-// rounding). `group` windows a block, the block looping over them, is the
-// JAX kernels' windows-per-program and gives bit-equal outputs.
+//       function on head-split q, k, v [nW, H, N, hd]. The TPU pads 196
+//       tokens to 256 with -1e30 keys; those contribute exactly 0, as the
+//       -inf pad keys here do, so no padded copy is made.
+// `group` windows a block, looping, gives bit-equal outputs.
 //
 // The tools' kernels, two more modes of the same body:
 //   T2 / T3 (replace tools/experiment_window_attn.py::pallas1 / pallasG,
 //       kern1 / kernG): softmax(q.k^T) v over q, k [BH, N, 92] (the rel-pos
 //       folded into the contraction) and v [BH, N, 64], no bias, no scale,
-//       p unnormalised in bf16 and the division after p.v, as K2. The 92
-//       columns are zero-padded to 96 in shared memory (the wmma depth is
-//       16), and a 184-byte global row is only 8-byte aligned, so q and k
-//       load in 8-byte pieces. G windows a block (T3) loop as K11's group
-//       does, so every G gives T2's output to the bit.
+//       the division after p.v. G (window, head) pairs a block (T3) loop.
 //   T4 (replaces tools/experiment_relpos_kernel.py::sel_attention,
-//       sel_kernel): K13's head-split addressing with K11's bias rows read,
-//       p normalised first, scale 1 (q arrives pre-scaled): q, k, v
-//       [BH, N, hd], qh, qw [BH, N, win] -> [BH, N, hd].
-// Bound like K11: their HBM bounds are 0.11-0.13 ms at 3456 (window, head)
-// pairs, against about 40 GFLOP.
+//       sel_kernel): K13's head-split addressing with K11's bias rows, p
+//       normalised first, scale 1 (q arrives pre-scaled).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "mma_bf16.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace samroad_mma;
 
 namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
+constexpr int NP_MAX = 208;       // 14 x 14 tokens padded to 13 strips of 16
+constexpr int KT = NP_MAX / 8;    // n8 key tiles of a strip's scores
 constexpr size_t SMEM_MAX = 232448;  // a block's dynamic shared memory on Hopper
-constexpr int FOLD_DQK = 96;         // T2 / T3: the folded q/k width, padded in shared memory
-constexpr int FOLD_DV = 64;          // T2 / T3: the value width
+constexpr int FOLD_DQK = 96;      // T2 / T3: the folded q/k width, padded in shared memory
+constexpr int FOLD_DV = 64;       // T2 / T3: the value width
 
 enum Bias { BIAS_NONE = 0, BIAS_ROWS = 1, BIAS_TABLE = 2 };
+enum Mode { MODE_WINDOW = 0, MODE_ROLLED = 1, MODE_GBATCH = 2 };
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~(size_t)127; }
 
-struct Layout {  // dynamic shared memory carve-up, byte offsets
-  int np, lds, ldp;
-  size_t q, k, v, table, warp0, warp_bytes, s_off, p_off, l_off, total;
-  // q/k rows dqk wide, v rows dv wide (each + 8 bf16 of row padding);
-  // table_win > 0 reserves fp32 bias rows [np, 2 * table_win] (K12, K13).
-  __host__ __device__ Layout(int N, int dqk, int dv, int table_win = 0) {
+// Dynamic shared memory, byte offsets: k [np][dqk + 8] at 0, v [np][dv + 8],
+// the bias rows bf16 [2][N * win] (BIAS_ROWS), the fp32 bias table
+// [N][2 win] (BIAS_TABLE).
+struct Layout {
+  int np;
+  size_t v, rows, table, total;
+  __host__ __device__ Layout(int N, int win, int dqk, int dv, int bias) {
     np = (N + 15) & ~15;
-    lds = (np > dv ? np : dv) + 4;  // fp32 row stride: np scores, then dv outputs
-    ldp = np + 8;                   // bf16 probability row stride (multiple of 8)
-    const size_t qk = (size_t)np * (dqk + 8) * sizeof(bf16);
-    q = 0;
-    k = qk;
-    v = 2 * qk;
-    table = v + (size_t)np * (dv + 8) * sizeof(bf16);
-    warp0 = table + align128((size_t)np * 2 * table_win * sizeof(float));
-    s_off = 0;
-    p_off = align128(16 * lds * sizeof(float));
-    l_off = p_off + align128(16 * ldp * sizeof(bf16));
-    warp_bytes = l_off + 128;
-    total = warp0 + WARPS * warp_bytes;
+    v = align128((size_t)np * (dqk + 8) * sizeof(bf16));
+    rows = v + align128((size_t)np * (dv + 8) * sizeof(bf16));
+    table = rows + (bias == BIAS_ROWS ? align128((size_t)2 * N * win * sizeof(bf16)) : 0);
+    total = table + (bias == BIAS_TABLE ? align128((size_t)N * 2 * win * sizeof(float)) : 0);
   }
 };
 
-enum Mode { MODE_WINDOW = 0, MODE_ROLLED = 1, MODE_GBATCH = 2 };
-
 // Where one (window, head)'s tokens, bias rows and output live. Token
 // n = (i, j) of the window sits at element i * row + j * col from q / k
-// (in_*), v (in_*, or v_* where its width differs: T2 / T3) and out
-// (out_*), channel 0 of this head.
+// (in_*), v (v_*) and out (out_*), channel 0 of this head.
 struct Tile {
   const bf16 *q, *k, *v;
   bf16* out;
@@ -148,9 +147,99 @@ struct Tile {
                           // (K12, K13), or null
   const bf16* qkv_bias;   // this head's q bias, k's at +C and v's at +2C (K2), or null
   int C;
-  int dqk;                // T2 / T3: the q/k width in memory, a multiple of 4 up to FOLD_DQK
+  int dqk;                // the q/k width in memory (T2 / T3: a multiple of 4 up to FOLD_DQK)
 };
 
+// Issue the cp.async copies of one item's k, v (rows N..np-1 and q/k
+// columns from t.dqk on zero-filled) and BIAS_ROWS' bias rows into `smem`.
+template <int DQK, int DV, int BIAS>
+__device__ __forceinline__ void issue_loads(const Tile& t, unsigned char* smem, const Layout& L,
+                                            int N, int win) {
+  constexpr int VK = DQK == DV ? 8 : 4;  // bf16 a copy: T2 / T3's q/k rows are 8-byte aligned
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v);
+  for (int e = threadIdx.x; e < L.np * (DQK / VK); e += THREADS) {
+    const int n = e / (DQK / VK), c = (e % (DQK / VK)) * VK;
+    const bool ok = n < N && c < t.dqk;
+    const bf16* src = ok ? t.k + (n / win) * t.in_row + (n % win) * t.in_col + c : t.k;
+    cp_async<VK * 2>(Ks + n * (DQK + 8) + c, src, ok);
+  }
+  for (int e = threadIdx.x; e < L.np * (DV / 8); e += THREADS) {
+    const int n = e / (DV / 8), c = (e % (DV / 8)) * 8;
+    const bool ok = n < N;
+    const bf16* src = ok ? t.v + (n / win) * t.v_row + (n % win) * t.v_col + c : t.v;
+    cp_async<16>(Vs + n * (DV + 8) + c, src, ok);
+  }
+  if constexpr (BIAS == BIAS_ROWS) {
+    bf16* rows = reinterpret_cast<bf16*>(smem + L.rows);
+    const int count = N * win;
+    if ((((uintptr_t)t.bh | (uintptr_t)t.bw) & 15) == 0 && count % 8 == 0) {
+      for (int e = threadIdx.x; e < count / 4; e += THREADS) {  // 16 bytes a copy, bh then bw
+        const int half = e / (count / 8), c = (e % (count / 8)) * 8;
+        cp_async<16>(rows + half * count + c, (half ? t.bw : t.bh) + c, true);
+      }
+    } else {  // an odd window: rows not 16-byte aligned, plain loads
+      for (int e = threadIdx.x; e < 2 * count; e += THREADS)
+        rows[e] = e < count ? t.bh[e] : t.bw[e - count];
+    }
+  }
+}
+
+// A fragments of q rows n0 = r0 + g and n1 = n0 + 8 over all DQK columns,
+// from global memory; rows past N and columns from t.dqk on are zero, K2's
+// qkv bias is added (fp32 sum rounded to bf16, as on the k / v tiles).
+template <int DQK>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[DQK / 16][4], const Tile& t, int n0, int N,
+                                       int win, int tq) {
+  const bf16* rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + 8 * h;
+    rows[h] = n < N ? t.q + (n / win) * t.in_row + (n % win) * t.in_col : nullptr;
+  }
+#pragma unroll
+  for (int c = 0; c < DQK / 16; ++c) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // reg r: row n0 + 8 (r & 1), columns + 8 (r >> 1)
+      const int col = c * 16 + (r >> 1) * 8 + 2 * tq;
+      const bf16* p = rows[r & 1];
+      uint32_t u = 0u;
+      if (p != nullptr && col < t.dqk) {
+        u = *reinterpret_cast<const uint32_t*>(p + col);
+        if (t.qkv_bias) {
+          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+          const float2 y =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(t.qkv_bias + col));
+          u = pack_bf16(x.x + y.x, x.y + y.y);
+        }
+      }
+      qa[c][r] = u;
+    }
+  }
+}
+
+// K2: the qkv bias added to the landed k and v rows of the real tokens.
+template <int D>
+__device__ __forceinline__ void add_kv_bias(const Tile& t, unsigned char* smem, const Layout& L,
+                                            int N) {
+  for (int e = threadIdx.x; e < 2 * N * (D / 8); e += THREADS) {
+    const int which = e / (N * (D / 8)), rem = e % (N * (D / 8));  // k, then v
+    const int n = rem / (D / 8), c = (rem % (D / 8)) * 8;
+    uint4* dst = reinterpret_cast<uint4*>(smem + which * L.v) + (n * (D + 8) + c) / 8;
+    uint4 u = *dst;
+    const uint4 bu = *reinterpret_cast<const uint4*>(t.qkv_bias + (which + 1) * t.C + c);
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&bu);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]), y = __bfloat1622float2(hb[i]);
+      h[i] = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
+    }
+    *dst = u;
+  }
+}
+
+// sum_c a[c] b[c] over D bf16 values (16-byte aligned rows), in fp32
 template <int D>
 __device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
   float acc = 0.f;
@@ -170,206 +259,222 @@ __device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
   return acc;
 }
 
-// Rows [0, np) x [0, D) of a shared-memory operand (row stride D + 8) from
-// the window's tokens, VEC bf16 a load (8: 16 bytes; 4: 8 bytes); columns
-// from dmem on and rows N..np-1 are zero (T2 / T3).
-template <int D, int VEC>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t row, int64_t col,
-                                          int N, int np, int win, int dmem) {
-  typedef typename std::conditional<VEC == 8, uint4, uint2>::type Vec;
-  for (int e = threadIdx.x; e < np * (D / VEC); e += THREADS) {
-    const int n = e / (D / VEC), c = (e % (D / VEC)) * VEC;
-    Vec u = Vec{};
-    if (n < N && c < dmem)
-      u = *reinterpret_cast<const Vec*>(src + (n / win) * row + (n % win) * col + c);
-    *reinterpret_cast<Vec*>(dst + n * (D + 8) + c) = u;
+// K12 / K13: table[n][a] = q[n] . rh[n, a] (a < win), q[n] . rw[n, a - win]
+// (a >= win), fp32, a dot a thread, q from global memory.
+template <int D>
+__device__ __forceinline__ void build_table(const Tile& t, float* table, int N, int win) {
+  for (int e = threadIdx.x; e < N * 2 * win; e += THREADS) {
+    const int n = e / (2 * win), a = e % (2 * win);
+    table[e] = dot_bf16<D>(t.q + (n / win) * t.in_row + (n % win) * t.in_col,
+                           a < win ? t.bh + ((int64_t)n * win + a) * D
+                                   : t.bw + ((int64_t)n * win + a - win) * D);
   }
 }
 
-// Attention of one (window, head) with the whole block. DQK / DV: the q/k
-// and v widths in shared memory; BIAS: none (T2 / T3), bias rows read (K2,
-// K11, T4) or built here from the expanded tables (K12, K13); NORM_FIRST: p
-// is normalised before p.v (K11-K13, T4), else after (K2, T2 / T3).
+// The 16-query strips of one item, each warp its own: scores in registers,
+// softmax, p . v, output. sl2 = scale * log2(e).
 template <int DQK, int DV, int BIAS, bool NORM_FIRST>
-__device__ __forceinline__ void attend(const Tile& t, unsigned char* smem, const Layout& L,
-                                       int win, float scale) {
-  constexpr int LDQK = DQK + 8, LDV = DV + 8;
-  const int N = win * win;
-  bf16 (*Qs)[LDQK] = reinterpret_cast<bf16 (*)[LDQK]>(smem + L.q);
-  bf16 (*Ks)[LDQK] = reinterpret_cast<bf16 (*)[LDQK]>(smem + L.k);
-  bf16 (*Vs)[LDV] = reinterpret_cast<bf16 (*)[LDV]>(smem + L.v);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if constexpr (DQK == DV) {
-    // q/k/v of this (window, head), a 16-byte chunk of each per step (three
-    // loads in flight), the qkv bias (if any) added to every token (pad
-    // tokens included); rows N..Np-1 are zero. v shares q's strides.
-    for (int e = tid; e < L.np * (DQK / 8); e += THREADS) {
-      const int n = e / (DQK / 8), c = (e % (DQK / 8)) * 8;
-      uint4 vals[3];
-      if (n < N) {
-        const int64_t off = (n / win) * t.in_row + (n % win) * t.in_col + c;
-        const bf16* src[3] = {t.q, t.k, t.v};
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          uint4 u = *reinterpret_cast<const uint4*>(src[p] + off);
-          if (t.qkv_bias) {
-            const uint4 bu = *reinterpret_cast<const uint4*>(t.qkv_bias + p * t.C + c);
-            __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-            const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&bu);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float2 x = __bfloat1622float2(h[i]), y = __bfloat1622float2(hb[i]);
-              h[i] = __floats2bfloat162_rn(x.x + y.x, x.y + y.y);
-            }
-          }
-          vals[p] = u;
-        }
-      } else {
-        vals[0] = vals[1] = vals[2] = make_uint4(0u, 0u, 0u, 0u);
-      }
-      *reinterpret_cast<uint4*>(&Qs[n][c]) = vals[0];
-      *reinterpret_cast<uint4*>(&Ks[n][c]) = vals[1];
-      *reinterpret_cast<uint4*>(&Vs[n][c]) = vals[2];
-    }
-  } else {
-    // T2 / T3: q/k rows t.dqk wide in memory (8-byte aligned), zero-padded
-    // to DQK; v rows DV wide at their own strides
-    load_rows<DQK, 4>(&Qs[0][0], t.q, t.in_row, t.in_col, N, L.np, win, t.dqk);
-    load_rows<DQK, 4>(&Ks[0][0], t.k, t.in_row, t.in_col, N, L.np, win, t.dqk);
-    load_rows<DV, 8>(&Vs[0][0], t.v, t.v_row, t.v_col, N, L.np, win, DV);
-  }
-  __syncthreads();
+__device__ __forceinline__ void attend_strips(const Tile& t, const unsigned char* smem,
+                                              const float* table, const Layout& L, int N, int win,
+                                              float sl2) {
+  constexpr int LDK = DQK + 8, LDV = DV + 8;
+  const bf16* Ks = reinterpret_cast<const bf16*>(smem);
+  const bf16* Vs = reinterpret_cast<const bf16*>(smem + L.v);
+  const bf16* bh_s = reinterpret_cast<const bf16*>(smem + L.rows);
+  const bf16* bw_s = bh_s + N * win;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: row of matrix lm
+  const int nkt = L.np / 8;
+  const int si = 8 / win, sj = 8 % win;  // key + 8 in window coordinates
 
-  // K12 / K13: bias rows [n][0, win) = q[n] . rh[n, a], [n][win, 2 win) =
-  // q[n] . rw[n, a], fp32, one (n, a) a thread.
-  float* table = reinterpret_cast<float*>(smem + L.table);
-  if constexpr (BIAS == BIAS_TABLE) {
-    for (int e = tid; e < N * 2 * win; e += THREADS) {
-      const int n = e / (2 * win), a = e % (2 * win);
-      const bf16* r = a < win ? t.bh + ((int64_t)n * win + a) * DQK
-                              : t.bw + ((int64_t)n * win + a - win) * DQK;
-      table[e] = dot_bf16<DQK>(&Qs[n][0], r);
-    }
-    __syncthreads();
-  }
-
-  unsigned char* wbase = smem + L.warp0 + warp * L.warp_bytes;
-  float* S = reinterpret_cast<float*>(wbase + L.s_off);
-  bf16* P = reinterpret_cast<bf16*>(wbase + L.p_off);
-  float* lsum = reinterpret_cast<float*>(wbase + L.l_off);
-  const int nstrips = L.np / 16;
-
-  for (int strip = warp; strip < nstrips; strip += WARPS) {
+  for (int strip = warp; strip < L.np / 16; strip += WARPS) {
     const int r0 = strip * 16;
-    // scores of 16 queries against all Np keys
-    for (int kb = 0; kb < L.np / 16; ++kb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+    uint32_t qa[DQK / 16][4];
+    load_q<DQK>(qa, t, r0 + g, N, win, tq);
+
+    float s[KT][4];
 #pragma unroll
-      for (int d = 0; d < DQK; d += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, &Qs[r0][d], LDQK);
-        wmma::load_matrix_sync(fb, &Ks[kb * 16][d], LDQK);
-        wmma::mma_sync(acc, fa, fb, acc);
+    for (int j = 0; j < KT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KT; j += 2) {
+      if (j < nkt) {
+#pragma unroll
+        for (int c = 0; c < DQK / 16; ++c) {
+          uint32_t b[4];  // keys 8j.. (cols c*16, +8), then keys 8(j+1).. (the same)
+          ldmatrix_x4(b, Ks + ((j + (lm >> 1)) * 8 + lr) * LDK + c * 16 + (lm & 1) * 8);
+          mma_bf16(s[j], qa[c], b[0], b[1]);
+          mma_bf16(s[j + 1], qa[c], b[2], b[3]);
+        }
       }
-      wmma::store_matrix_sync(S + kb * 16, acc, L.lds, wmma::mem_row_major);
     }
-    __syncwarp();
-    // scale + rel-pos spread + pad-key mask, fp32 softmax numerator
-    for (int r = 0; r < 16; ++r) {
-      const int n = r0 + r;
-      const int nb = n < N ? n : 0;
-      float* srow = S + r * L.lds;
-      float mx = -INFINITY;
-      for (int m = lane; m < L.np; m += 32) {
-        float s = -INFINITY;
-        if (m < N) {
-          s = srow[m] * scale;
-          if (n < N) {
-            if constexpr (BIAS == BIAS_TABLE)
-              s += table[nb * 2 * win + m / win] + table[nb * 2 * win + win + m % win];
-            else if constexpr (BIAS == BIAS_ROWS)
-              s += __bfloat162float(t.bh[nb * win + m / win]) +
-                   __bfloat162float(t.bw[nb * win + m % win]);
+
+    // scale, bias, pad-key mask in the log2 domain; the bias row of a pad
+    // query row (discarded) is the last real one
+    const int nq[2] = {min(r0 + g, N - 1), min(r0 + g + 8, N - 1)};
+    int ki = (2 * tq) / win, kj = (2 * tq) % win;  // key 8j + 2tq as (i', j')
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j < nkt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j * 8 + 2 * tq + e;
+          int ei = ki, ej = kj + e;
+          if (ej >= win) {
+            ej -= win;
+            ++ei;
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v = -INFINITY;
+            if (key < N) {
+              float b = 0.f;
+              if constexpr (BIAS == BIAS_ROWS)
+                b = __bfloat162float(bh_s[nq[h] * win + ei]) +
+                    __bfloat162float(bw_s[nq[h] * win + ej]);
+              else if constexpr (BIAS == BIAS_TABLE)
+                b = table[nq[h] * 2 * win + ei] + table[nq[h] * 2 * win + win + ej];
+              v = fmaf(s[j][2 * h + e], sl2, b * LOG2E);
+            }
+            s[j][2 * h + e] = v;
+            mx[h] = fmaxf(mx[h], v);
           }
         }
-        srow[m] = s;
-        mx = fmaxf(mx, s);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      float sum = 0.f;
-      for (int m = lane; m < L.np; m += 32) {
-        const float p = m < N ? expf(srow[m] - mx) : 0.f;
-        sum += p;
-        if constexpr (NORM_FIRST)
-          srow[m] = p;
-        else
-          P[r * L.ldp + m] = __float2bfloat16_rn(p);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if constexpr (NORM_FIRST) {
-        for (int m = lane; m < L.np; m += 32) P[r * L.ldp + m] = __float2bfloat16_rn(srow[m] / sum);
-      } else {
-        if (lane == 0) lsum[r] = sum;
+        kj += sj;
+        ki += si;
+        if (kj >= win) {
+          kj -= win;
+          ++ki;
+        }
       }
     }
-    __syncwarp();
-    // p . v (then / l unless p was normalised)
+    float l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int d = 0; d < DV; d += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kb = 0; kb < L.np / 16; ++kb) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, P + kb * 16, L.ldp);
-        wmma::load_matrix_sync(fb, &Vs[kb * 16][d], LDV);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(S + d, acc, L.lds, wmma::mem_row_major);
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
     }
-    __syncwarp();
-    for (int e = lane; e < 16 * DV; e += 32) {
-      const int r = e / DV, d = e % DV;
-      const int n = r0 + r;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j < nkt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[j][i] = ex2(s[j][i] - mx[i >> 1]);
+          l[i >> 1] += s[j][i];
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+
+    // p as bf16 A fragments: keys 16kk.. are C tiles 2kk (cols 2tq) and 2kk + 1 (+8)
+    uint32_t pa[KT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < KT / 2; ++kk) {
+      const float f0 = NORM_FIRST ? inv[0] : 1.f, f1 = NORM_FIRST ? inv[1] : 1.f;
+      pa[kk][0] = pack_bf16(s[2 * kk][0] * f0, s[2 * kk][1] * f0);
+      pa[kk][1] = pack_bf16(s[2 * kk][2] * f1, s[2 * kk][3] * f1);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0] * f0, s[2 * kk + 1][1] * f0);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2] * f1, s[2 * kk + 1][3] * f1);
+    }
+
+    float o[DV / 8][4];
+#pragma unroll
+    for (int d = 0; d < DV / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT / 2; ++kk) {
+      if (2 * kk < nkt) {
+#pragma unroll
+        for (int d = 0; d < DV / 16; ++d) {
+          uint32_t b[4];  // v rows 16kk.. (+8) at cols 16d, then at cols 16d + 8
+          ldmatrix_x4_trans(b, Vs + (kk * 16 + (lm & 1) * 8 + lr) * LDV + d * 16 + (lm >> 1) * 8);
+          mma_bf16(o[2 * d], pa[kk], b[0], b[1]);
+          mma_bf16(o[2 * d + 1], pa[kk], b[2], b[3]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = r0 + g + 8 * h;
       if (n < N) {
-        const float o = NORM_FIRST ? S[r * L.lds + d] : S[r * L.lds + d] / lsum[r];
-        t.out[(n / win) * t.out_row + (n % win) * t.out_col + d] = __float2bfloat16_rn(o);
+        const float f = NORM_FIRST ? 1.f : inv[h];
+        bf16* dst = t.out + (n / win) * t.out_row + (n % win) * t.out_col + 2 * tq;
+#pragma unroll
+        for (int d = 0; d < DV / 8; ++d)
+          *reinterpret_cast<uint32_t*>(dst + d * 8) =
+              pack_bf16(o[d][2 * h] * f, o[d][2 * h + 1] * f);
       }
     }
-    __syncwarp();
+  }
+}
+
+// The block's `count` items in turn (item(i) gives item i's Tile), through
+// one shared-memory stage: the next item's copies are issued once the
+// current item's products are done. The arithmetic of an item does not
+// depend on count.
+template <int DQK, int DV, int BIAS, bool NORM_FIRST, class Items>
+__device__ __forceinline__ void attend_items(const Items& item, int count, unsigned char* smem,
+                                             int N, int win, float scale) {
+  const Layout L(N, win, DQK, DV, BIAS);
+  float* table = reinterpret_cast<float*>(smem + L.table);
+  const float sl2 = scale * LOG2E;
+  issue_loads<DQK, DV, BIAS>(item(0), smem, L, N, win);
+  cp_async_commit();
+  for (int i = 0; i < count; ++i) {
+    const Tile t = item(i);
+    cp_async_wait<0>();
+    __syncthreads();  // this item's copies (and plain bias-row stores) are visible
+    if (t.qkv_bias != nullptr || BIAS == BIAS_TABLE) {
+      if constexpr (BIAS == BIAS_TABLE)
+        build_table<DQK>(t, table, N, win);
+      else if constexpr (DQK == DV)
+        add_kv_bias<DQK>(t, smem, L, N);
+      __syncthreads();
+    }
+    attend_strips<DQK, DV, BIAS, NORM_FIRST>(t, smem, table, L, N, win, sl2);
+    if (i + 1 < count) {
+      __syncthreads();  // the tiles and the table are consumed
+      issue_loads<DQK, DV, BIAS>(item(i + 1), smem, L, N, win);
+      cp_async_commit();
+    }
   }
 }
 
 // K2 / K10: image b, window (wi, wj), head of the padded grid.
 template <int HD>
-__device__ __forceinline__ void attend_grid(const bf16* qkv, const bf16* qkv_bias, const bf16* bh,
-                                            const bf16* bw, bf16* out, unsigned char* smem,
-                                            const Layout& L, int b, int wi, int wj, int head,
-                                            int Hp, int Wp, int C, int heads, int win,
-                                            float scale) {
-  const int N = win * win;
-  const int nI = Hp / win, nJ = Wp / win;
-  const int64_t row0 = ((int64_t)b * Hp + wi * win) * Wp + wj * win;  // token (0, 0)
-  const int64_t rows = ((((int64_t)b * nI + wi) * nJ + wj) * heads + head) * N * win;
-  Tile t;
-  t.q = qkv + row0 * 3 * C + head * HD;
-  t.k = t.q + C;
-  t.v = t.q + 2 * C;
-  t.out = out + row0 * C + head * HD;
-  t.in_row = (int64_t)Wp * 3 * C;
-  t.in_col = 3 * C;
-  t.out_row = (int64_t)Wp * C;
-  t.out_col = C;
-  t.bh = bh + rows;
-  t.bw = bw + rows;
-  t.qkv_bias = qkv_bias + head * HD;
-  t.C = C;
-  attend<HD, HD, BIAS_ROWS, false>(t, smem, L, win, scale);
-}
+struct GridItems {
+  const bf16 *qkv, *qkv_bias, *bh, *bw;
+  bf16* out;
+  int Hp, Wp, C, heads, win, head;
+  int b0, db, wi, wj0, dwj;  // item i: image b0 + i db, window (wi, wj0 + i dwj)
+  __device__ Tile operator()(int i) const {
+    const int b = b0 + i * db, wj = wj0 + i * dwj;
+    const int N = win * win, nI = Hp / win, nJ = Wp / win;
+    const int64_t row0 = ((int64_t)b * Hp + wi * win) * Wp + wj * win;  // token (0, 0)
+    const int64_t rows = ((((int64_t)b * nI + wi) * nJ + wj) * heads + head) * N * win;
+    Tile t;
+    t.q = qkv + row0 * 3 * C + head * HD;
+    t.k = t.q + C;
+    t.v = t.q + 2 * C;
+    t.out = out + row0 * C + head * HD;
+    t.in_row = t.v_row = (int64_t)Wp * 3 * C;
+    t.in_col = t.v_col = 3 * C;
+    t.out_row = (int64_t)Wp * C;
+    t.out_col = C;
+    t.bh = bh + rows;
+    t.bw = bw + rows;
+    t.qkv_bias = qkv_bias + head * HD;
+    t.C = C;
+    t.dqk = HD;
+    return t;
+  }
+};
 
 template <int MODE, int HD>
 __global__ void __launch_bounds__(THREADS)
@@ -378,51 +483,42 @@ window_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ q
                         bf16* __restrict__ out, int Hp, int Wp, int C, int heads,
                         int win, int G, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(win * win, HD, HD);
   const int nI = Hp / win, nJ = Wp / win;
   int idx = blockIdx.x;
-  const int head = idx % heads; idx /= heads;
-  if constexpr (MODE == MODE_ROLLED) {
-    const int wi = idx % nI, b = idx / nI;
-    for (int wj = 0; wj < nJ; ++wj) {
-      if (wj) __syncthreads();  // the previous window's q/k/v are consumed
-      attend_grid<HD>(qkv, qkv_bias, bh, bw, out, smem, L, b, wi, wj, head, Hp, Wp, C, heads,
-                      win, scale);
-    }
+  GridItems<HD> items{qkv, qkv_bias, bh, bw, out, Hp, Wp, C, heads, win, idx % heads};
+  idx /= heads;
+  int count = 1;
+  if constexpr (MODE == MODE_ROLLED) {  // the row's nJ windows
+    items.wi = idx % nI;
+    items.b0 = idx / nI;
+    items.db = 0;
+    items.wj0 = 0;
+    items.dwj = 1;
+    count = nJ;
   } else {
-    const int wj = idx % nJ; idx /= nJ;
-    const int wi = idx % nI;
-    const int b0 = idx / nI;
-    if constexpr (MODE == MODE_GBATCH) {
-      for (int g = 0; g < G; ++g) {
-        if (g) __syncthreads();
-        attend_grid<HD>(qkv, qkv_bias, bh, bw, out, smem, L, b0 * G + g, wi, wj, head, Hp, Wp,
-                        C, heads, win, scale);
-      }
-    } else {
-      attend_grid<HD>(qkv, qkv_bias, bh, bw, out, smem, L, b0, wi, wj, head, Hp, Wp, C, heads,
-                      win, scale);
-    }
+    items.wj0 = idx % nJ;
+    idx /= nJ;
+    items.wi = idx % nI;
+    items.dwj = 0;
+    const int g = MODE == MODE_GBATCH ? G : 1;  // the group's G images
+    items.b0 = idx / nI * g;
+    items.db = 1;
+    count = g;
   }
+  attend_items<HD, HD, BIAS_ROWS, false>(items, count, smem, win * win, win, scale);
 }
 
 // K11 (BIAS_ROWS), K12 (BIAS_TABLE) on the window layout, K13 (HEADSPLIT,
-// BIAS_TABLE) and T4 (HEADSPLIT, BIAS_ROWS, one head) on head-split tensors:
-// one block per (group of G windows, head), looping over the group's windows.
+// BIAS_TABLE) and T4 (HEADSPLIT, BIAS_ROWS, one head) on head-split tensors.
 template <bool HEADSPLIT, int BIAS, int HD>
-__global__ void __launch_bounds__(THREADS)
-window_layout_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ bh,
-                     const bf16* __restrict__ bw, bf16* __restrict__ out, int C, int heads,
-                     int win, int G, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(win * win, HD, HD, BIAS == BIAS_TABLE ? win : 0);
-  const int N = win * win;
-  const int head = blockIdx.x % heads;
-  const int w0 = blockIdx.x / heads * G;
-  for (int g = 0; g < G; ++g) {
-    if (g) __syncthreads();  // the previous window's q/k/v and bias rows are consumed
-    const int64_t w = w0 + g;
+struct LayoutItems {
+  const bf16 *q, *k, *v, *bh, *bw;
+  bf16* out;
+  int C, heads, win, head;
+  int64_t w0;
+  __device__ Tile operator()(int i) const {
+    const int N = win * win;
+    const int64_t w = w0 + i;
     // token (0, 0) of this (window, head); q, k and v are the three thirds
     // of one qkv row (window layout) or three tensors (head-split)
     const int64_t in0 = HEADSPLIT ? (w * heads + head) * N * HD : w * N * 3 * C + head * HD;
@@ -431,9 +527,9 @@ window_layout_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     t.k = k + in0;
     t.v = v + in0;
     t.out = out + (HEADSPLIT ? in0 : w * N * C + head * HD);
-    t.in_col = HEADSPLIT ? HD : 3 * C;
+    t.in_col = t.v_col = HEADSPLIT ? HD : 3 * C;
     t.out_col = HEADSPLIT ? HD : C;
-    t.in_row = win * t.in_col;
+    t.in_row = t.v_row = win * t.in_col;
     t.out_row = win * t.out_col;
     if constexpr (BIAS == BIAS_TABLE) {  // the expanded tables, shared by every window and head
       t.bh = bh;
@@ -444,22 +540,36 @@ window_layout_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     t.qkv_bias = nullptr;
     t.C = C;
-    attend<HD, HD, BIAS, true>(t, smem, L, win, scale);
+    t.dqk = HD;
+    return t;
   }
+};
+
+// one block per (group of G windows, head), looping over the group (two
+// blocks an SM asked for: ptxas's own choice of 168 registers spilled here)
+template <bool HEADSPLIT, int BIAS, int HD>
+__global__ void __launch_bounds__(THREADS, 2)
+window_layout_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ bh,
+                     const bf16* __restrict__ bw, bf16* __restrict__ out, int C, int heads,
+                     int win, int G, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const LayoutItems<HEADSPLIT, BIAS, HD> items{q, k, v, bh, bw, out, C, heads, win,
+                                               (int)(blockIdx.x % heads),
+                                               (int64_t)(blockIdx.x / heads) * G};
+  attend_items<HD, HD, BIAS, true>(items, G, smem, win * win, win, scale);
 }
 
-// T2 / T3: one block per G (window, head) pairs, looping over them; q, k
-// [BH, N, dqk], v and out [BH, N, FOLD_DV].
-__global__ void __launch_bounds__(THREADS)
-folded_window_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int dqk, int win,
-                     int G) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(win * win, FOLD_DQK, FOLD_DV);
-  const int N = win * win;
-  for (int g = 0; g < G; ++g) {
-    if (g) __syncthreads();  // the previous window's q/k/v are consumed
-    const int64_t w = (int64_t)blockIdx.x * G + g;
+// T2 / T3: G (window, head) pairs a block; q, k [BH, N, dqk], v and out
+// [BH, N, FOLD_DV].
+struct FoldedItems {
+  const bf16 *q, *k, *v;
+  bf16* out;
+  int dqk, win;
+  int64_t w0;
+  __device__ Tile operator()(int i) const {
+    const int N = win * win;
+    const int64_t w = w0 + i;
     Tile t;
     t.q = q + w * N * dqk;
     t.k = k + w * N * dqk;
@@ -473,8 +583,17 @@ folded_window_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     t.qkv_bias = nullptr;
     t.C = 0;
     t.dqk = dqk;
-    attend<FOLD_DQK, FOLD_DV, BIAS_NONE, false>(t, smem, L, win, 1.0f);
+    return t;
   }
+};
+
+__global__ void __launch_bounds__(THREADS)
+folded_window_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out, int dqk, int win,
+                     int G) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FoldedItems items{q, k, v, out, dqk, win, (int64_t)blockIdx.x * G};
+  attend_items<FOLD_DQK, FOLD_DV, BIAS_NONE, false>(items, G, smem, win * win, win, 1.0f);
 }
 
 template <typename Kernel, typename... Args>
@@ -488,12 +607,15 @@ cudaError_t launch(Kernel kernel, const Layout& L, int blocks, cudaStream_t stre
   return cudaGetLastError();
 }
 
+bool window_ok(int win) { return win > 0 && ((win * win + 15) & ~15) <= NP_MAX; }
+
 template <int MODE, int HD>
 cudaError_t launch_window(const void* qkv, const void* qkv_bias, const void* bh,
                           const void* bw, void* out, int blocks, int Hp, int Wp, int C,
                           int heads, int win, int G, cudaStream_t stream) {
-  return launch(window_attention_kernel<MODE, HD>, Layout(win * win, HD, HD), blocks, stream,
-                reinterpret_cast<const bf16*>(qkv), reinterpret_cast<const bf16*>(qkv_bias),
+  return launch(window_attention_kernel<MODE, HD>, Layout(win * win, win, HD, HD, BIAS_ROWS),
+                blocks, stream, reinterpret_cast<const bf16*>(qkv),
+                reinterpret_cast<const bf16*>(qkv_bias),
                 reinterpret_cast<const bf16*>(bh), reinterpret_cast<const bf16*>(bw),
                 reinterpret_cast<bf16*>(out), Hp, Wp, C, heads, win, G,
                 1.0f / sqrtf((float)HD));
@@ -522,8 +644,8 @@ int launch_layout_hd(const void* q, const void* k, const void* v, const void* bh
                      const void* bw, void* out, int nW, int C, int heads, int win, int G,
                      float scale, cudaStream_t stream) {
   return (int)launch(window_layout_kernel<HEADSPLIT, BIAS, HD>,
-                     Layout(win * win, HD, HD, BIAS == BIAS_TABLE ? win : 0), nW / G * heads,
-                     stream, reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
+                     Layout(win * win, win, HD, HD, BIAS), nW / G * heads, stream,
+                     reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
                      reinterpret_cast<const bf16*>(v), reinterpret_cast<const bf16*>(bh),
                      reinterpret_cast<const bf16*>(bw), reinterpret_cast<bf16*>(out), C, heads,
                      win, G, scale);
@@ -534,7 +656,7 @@ template <bool HEADSPLIT, int BIAS>
 int launch_layout(const void* q, const void* k, const void* v, const void* bh, const void* bw,
                   void* out, int nW, int C, int heads, int win, int G, float scale,
                   cudaStream_t stream) {
-  if (heads <= 0 || C % heads || win <= 0 || win * win > 256 || G <= 0 || nW <= 0 || nW % G)
+  if (heads <= 0 || C % heads || !window_ok(win) || G <= 0 || nW <= 0 || nW % G)
     return (int)cudaErrorInvalidValue;
   const int hd = C / heads;
   if (scale <= 0.f) scale = 1.0f / sqrtf((float)hd);
@@ -553,12 +675,12 @@ extern "C" {
 
 // qkv [B, Hp, Wp, 3C] bf16 (bias-free, zero pads), qkv_bias [3C] bf16,
 // bh / bw [B, Hp/win, Wp/win, heads, win*win, win] bf16,
-// out [B, Hp, Wp, C] bf16. head_dim 64 or 80. mode: MODE_WINDOW (K2),
-// MODE_ROLLED or MODE_GBATCH (K10; G images a block, G must divide B).
+// out [B, Hp, Wp, C] bf16. head_dim 64 or 80, win <= 14. mode: MODE_WINDOW
+// (K2), MODE_ROLLED or MODE_GBATCH (K10; G images a block, G must divide B).
 int samroad_window_attention(const void* qkv, const void* qkv_bias, const void* bh,
                              const void* bw, void* out, int B, int Hp, int Wp,
                              int C, int heads, int win, int mode, int G, void* stream) {
-  if (heads <= 0 || C % heads || win <= 0 || Hp % win || Wp % win || win * win > 256)
+  if (heads <= 0 || C % heads || !window_ok(win) || Hp % win || Wp % win)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (C / heads == 64)
@@ -605,10 +727,10 @@ int samroad_sel_attention(const void* q, const void* k, const void* v, const voi
 // out [BH, win*win, 64] bf16; G (window, head) pairs a block (G divides BH).
 int samroad_window_attn_folded(const void* q, const void* k, const void* v, void* out, int BH,
                                int dqk, int win, int G, void* stream) {
-  if (dqk <= 0 || dqk > FOLD_DQK || dqk % 4 || win <= 0 || win * win > 256 || G <= 0 ||
-      BH <= 0 || BH % G)
+  if (dqk <= 0 || dqk > FOLD_DQK || dqk % 4 || !window_ok(win) || G <= 0 || BH <= 0 || BH % G)
     return (int)cudaErrorInvalidValue;
-  return (int)launch(folded_window_kernel, Layout(win * win, FOLD_DQK, FOLD_DV), BH / G,
+  return (int)launch(folded_window_kernel,
+                     Layout(win * win, win, FOLD_DQK, FOLD_DV, BIAS_NONE), BH / G,
                      reinterpret_cast<cudaStream_t>(stream), reinterpret_cast<const bf16*>(q),
                      reinterpret_cast<const bf16*>(k), reinterpret_cast<const bf16*>(v),
                      reinterpret_cast<bf16*>(out), dqk, win, G);

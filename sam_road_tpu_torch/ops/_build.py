@@ -23,6 +23,7 @@ from sam_road_tpu_torch._native import PKG_DIR, build_and_load
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "flash_attention.cu",
            "probes.cu")
+HEADERS = ("mma_bf16.cuh",)  # included by window_attention.cu and relpos_attention.cu
 # --ptxas-options=-v: each instance's registers and spills, in the build log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v"]
@@ -81,7 +82,8 @@ def nvcc_path() -> str:
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library (built on the first call)."""
     dll = build_and_load("samroad_kernels", nvcc_path(), NVCC_FLAGS,
-                         [os.path.join(CSRC_DIR, s) for s in SOURCES])
+                         [os.path.join(CSRC_DIR, s) for s in SOURCES],
+                         [os.path.join(CSRC_DIR, h) for h in HEADERS])
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(dll, name)
         fn.argtypes = argtypes

@@ -19,15 +19,22 @@ raises.
 
 Source notes. K3 replaces attention.py::attention_relpos_rows
 (_relpos_rows_kernel), which holds a whole (image, head)'s 1024 x 1024
-scores in VMEM. On the H100 it is compute-bound (268 MFLOP per (image,
-head) against 0.5 MB of q/k/v) and shared memory cannot hold the scores,
-so the kernel is a flash-attention loop: one block per (image x head,
-64-query tile), 64-key tiles, fp32 online softmax, the bias rows spread as
-bh[n, m // W] + bw[n, m % W] onto each key tile; instances at head_dim 64
-and 80 (vit_h's global blocks: 256 tokens at 256 px). K5 replaces
-attention.py::fused_attention (_flash_forward: the whole-N _flash_kernel and
-the kv-tiled _blocked_kernel) with the same loop over a runtime contraction
-width D = head_dim + H + W; it tiles every N, so the XLA fallback for an N
+scores in VMEM. On the H100 it is bound by operations (268 MFLOP per
+(image, head) against 0.5 MB of q/k/v; 0.104 ms for the bench shape at the
+bf16 tensor peak) and shared memory cannot hold the scores, so the kernel is
+a flash-attention loop on Hopper's warpgroup product (wgmma, the only route
+to that rate): one block per (image x head, 128-query tile), two
+warpgroups of 64 rows; q fragments, scores, the online softmax and the
+output accumulator all in registers (both products take their A operand
+from registers); 64-key k / v tiles in a 3-stage cp.async ring in wgmma's
+no-swizzle layout, which takes head_dim 80's 160-byte rows too; the bias
+rows staged once as fp32 in shared memory (98 KB a block at head_dim 64).
+Instances at head_dim 64 and 80 (vit_h's global blocks: 256 tokens at 256
+px); the grid's width must be a multiple of 8 (the bias walks 8 keys of one
+grid row an n8 tile). K5 replaces attention.py::fused_attention
+(_flash_forward: the whole-N _flash_kernel and the kv-tiled _blocked_kernel)
+with a flash loop of its own (csrc/flash_attention.cu, wmma) over a runtime
+contraction width D = head_dim + H + W; it tiles every N, so the XLA fallback for an N
 the TPU kernel cannot tile has no counterpart.
 """
 
@@ -58,8 +65,8 @@ def attention_relpos_rows(q, k, v, bh, bw, hw):
         return attention_relpos_rows_plain(q, k, v, bh, bw, hw)
     H, W = hw
     B, nH, N, D = q.shape
-    if N != H * W or N % 64:
-        raise ValueError(f"relpos attention kernel needs N == H*W and N % 64 == 0, "
+    if N != H * W or N % 64 or W % 8:
+        raise ValueError(f"relpos attention kernel needs N == H*W, N % 64 == 0 and W % 8 == 0, "
                          f"got N={N} hw={hw}")
     _build.require_head_dim(D, "attention_relpos_rows")
     bf = torch.bfloat16

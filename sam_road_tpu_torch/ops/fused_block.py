@@ -7,20 +7,29 @@ hand-written kernel in csrc/window_attention.cu or raises.
 
 Source note. Replaces fused_block.py::window_attention_rows_grid at its
 default granularity (_window_attn_rows_grid_kernel + _win_attn_body). On the
-H100 a window's attention is small (9.8 MFLOP per (window, head)), so the
-kernel is bound by latency and shared-memory traffic: one block per (image,
-window, head) reads q/k/v with strides straight from the bias-free grid,
-adds the qkv bias to every token (pad tokens become exactly `bias`), pads
-the 196 tokens to 208 rows with -inf pad keys, keeps each 16-query score
-strip in shared memory, normalises after p.v, and writes the output back in
-grid layout, so no window partition or unpartition pass touches HBM.
+H100 a window's attention is bound by bytes (385 MB, 0.115 ms, against 34
+GFLOP at the bench shape), so the work is in latency and shared-memory
+traffic. One block per (image, window, head) reads q/k/v with strides
+straight from the bias-free grid (cp.async into shared memory for k and v,
+q straight into mma fragments), adds the qkv bias to every token (pad tokens
+become exactly `bias`), pads the 196 tokens to 208 rows with -inf pad keys
+and keeps each warp's 16-query strip register-resident: its 208 scores
+(mma.sync.m16n8k16, bf16 in, fp32 out), the masked softmax (two shuffles a
+row reduction, exp2) and p, which feeds p.v from registers; the output is
+divided after p.v and written back in grid layout from registers, so no
+window partition or unpartition pass touches HBM. No score strip in shared
+memory: a block takes 70 KB at head_dim 64 (80 KB at 80), and two or three
+blocks of 4 warps stay resident an SM.
 
 K10: rolled_rows / group_batch select the granularities of the same JAX
 function (_window_attn_rows_grid_rolled_kernel, _window_attn_rows_grid_
 gbatch_kernel). In CUDA they are choices of how blocks map to work over the
 same per-window device code: one block per (image, window row, head)
 looping over the row's windows, or per (group of G images, window, head)
-looping over the group, so their outputs are bit-equal to K2's. G follows
+looping over the group, so their outputs are bit-equal to K2's; a looping
+block keeps one shared-memory stage and loads the next window once the
+current one's products are done, so two or three blocks stay resident an
+SM and hide each other's loads. G follows
 the JAX rule (halved until it divides B) and group_batch > 1 wins over
 rolled_rows. Each mode counts its launches under its own name
 (window_attention_rows_grid_rolled, window_attention_rows_grid_gbatch).
@@ -42,11 +51,13 @@ normalise p before p.v, where K2 divides after it, so K11 equals K2 only
 within bf16 rounding. `group` (windows a block) follows the JAX halving rule
 over nW and gives bit-equal outputs. K13's TPU padding of the tokens to a
 multiple of 128 with -1e30 keys adds exact zeros; its plain version keeps
-it, the kernel computes on the real keys. Like K2, bound by latency and
-shared memory.
+it, the kernel computes on the real keys. Like K2, bound by bytes, and
+worked by latency and shared-memory traffic; K12 and K13 also read 702 KB
+of the expanded tables from L2 for each (window, head).
 
 Head dims: every kernel here has instances at head_dim 64 (ViT-B, vit_l)
-and 80 (vit_h); another head_dim raises. The kernels scale the fp32 scores
+and 80 (vit_h); another head_dim raises, as does a window larger than SAM's
+14 x 14 (the kernel's score strip holds 208 keys). The kernels scale the fp32 scores
 after the product, the JAX body's non-merged branch (fused_block.py:209-214),
 which at a power of two equals its merged branch's pre-scaled q bit for bit;
 K2's plain version follows whichever branch the JAX body takes.

@@ -77,15 +77,17 @@ def inker_attention_plain(q, k, v, rh_exp, rw_exp, win_h: int, win_w: int):
 def inker_attention(q, k, v, rh_exp, rw_exp, win_h: int, win_w: int):
     """T5: q, k, v [BH, N, hd] (q unscaled), the expanded tables rh_exp [N,
     win_h, hd], rw_exp [N, win_w, hd] -> [BH, N, hd]. A square window of at
-    most 256 tokens runs K13's table mode at one head; a grid of N % 64 == 0
-    tokens with win_h + win_w <= 64 runs MODE_TABLE of K3's loop. Raises for
+    most 196 tokens (14 x 14, the window kernels' largest) runs K13's table
+    mode at one head; a grid of N % 64 == 0 tokens with win_w % 8 == 0 and
+    win_h + win_w <= 64 runs MODE_TABLE of K3's loop. Raises for
     any other N and for a head_dim without an instance (64, 80)."""
     if _build.on_cpu(q):
         return inker_attention_plain(q, k, v, rh_exp, rw_exp, win_h, win_w)
     BH, N, hd = q.shape
     _build.require_head_dim(hd, "inker_attention")
-    windowed = win_h == win_w and N <= 256
-    if N != win_h * win_w or not (windowed or (N % 64 == 0 and win_h + win_w <= TABLE_ROWS)):
+    windowed = win_h == win_w and N <= 196
+    if N != win_h * win_w or not (windowed or (N % 64 == 0 and win_w % 8 == 0
+                                                 and win_h + win_w <= TABLE_ROWS)):
         raise ValueError(f"inker_attention has no kernel for N={N} on a {win_h}x{win_w} grid")
     bf = torch.bfloat16
     _build.require(q, "q", bf)

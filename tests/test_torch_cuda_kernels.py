@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, in bf16 at
 the bench shapes (ViT-B at 512 px: C 768, 12 heads, 32x32 token grid,
-window 14), the K6 wrappers' forward and gradients at the training shapes
+window 14), the attention kernels with peaked scores (bias x 8) at head_dim
+64 and 80, the K6 wrappers' forward and gradients at the training shapes
 (the same at batch 16), and the grid modes K7, K8 and K10 bit-equal to the
 kernels they vary (K1 + pad, K4 on the cropped input, K2), and K9, K11, K12
 and K13 at the tools' shapes (groups bit-equal), K2, K3 and K10-K13 at
@@ -374,16 +375,62 @@ def test_cuda_window_layout_kernels_match_plain_at_head_dim_80(cuda, name):
     assert _within_tol(got, plain(*[a.float() for a in args]))
 
 
+PEAK = 8.0  # bias scale of the peaked-score cases
+
+
+def _peaked_case(name, hd, dev):
+    """(kernel, plain, bf16 inputs) with the rel-pos bias scaled by PEAK, so
+    each row's maximum lies off the diagonal and p is nearly one-hot: K2 and
+    K3 at the bench shapes (hd 64, batch 4) or vit_h's (hd 80), K11-K13 on
+    32 windows, T5 on the 32 x 32 global grid."""
+    geo = dict(C=768, heads=12, grid=32) if hd == 64 else VITH
+    if name in ("window_attention_rows_grid", "attention_relpos_rows"):
+        kern, plain, args = _bench_case(name, 4, dev, **geo)
+        n = len(args)
+        return kern, plain, args[:n - 2] + tuple(t * PEAK for t in args[n - 2:])
+    if name == "inker_attention":
+        gen = torch.Generator(device=dev).manual_seed(30)
+        q, k, v = (_rn(gen, dev, 48, 1024, hd) for _ in range(3))
+        tables = (_rn(gen, dev, 63, hd, scale=0.1 * PEAK) for _ in range(2))
+        rh, rw = fused_block.expand_rel_pos(*tables, 32, torch.bfloat16)
+        return (lambda *a: experiment_block_variants.inker_attention(*a, 32, 32),
+                lambda *a: experiment_block_variants.inker_attention_plain(*a, 32, 32),
+                (q, k, v, rh, rw))
+    kern, plain, args = _window_layout_case(name, dev, nW=32, heads=geo["heads"], hd=hd)
+    if name == "window_attention_rows":
+        return kern, plain, (args[0], args[1] * PEAK, args[2] * PEAK)
+    return kern, plain, args[:-2] + tuple(t * PEAK for t in args[-2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("name", ["window_attention_rows_grid", "attention_relpos_rows",
+                                  "window_attention_rows", "window_attention_relpos",
+                                  "window_attention_relpos_batched", "inker_attention"])
+def test_cuda_attention_kernels_match_plain_with_peaked_scores(cuda, name, hd):
+    """K2, K3, K11-K13 and T5 global with the bias scaled by 8 (row maxima
+    off the diagonal, p nearly one-hot) at head_dim 64 and 80: within 2e-2
+    (1 + |plain|) of the plain version in fp32; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern, plain, args = _peaked_case(name, hd, cuda)
+    before = _build.launches[name]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert _build.launches[name] == before + 1
+    assert _within_tol(got, plain(*[a.float() for a in args]))
+
+
 def _rn(gen, dev, *shape, scale=1.0):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g", [2, 4, 8])
+@pytest.mark.parametrize("g", [2, 3, 4, 8])
 def test_cuda_diag_attn_matches_plain(cuda, g):
-    """T1 on 48 windows of 14 x 14 (C 768, 12 heads) folded g to a product:
-    within 2e-2 (1 + |plain|) of its plain version in fp32, and of K11 on
-    the same windows; one launch."""
+    """T1 on 48 windows of 14 x 14 (C 768, 12 heads) folded g to a product
+    (g 3: 588 tokens, a ragged last query tile and key tile): within 2e-2
+    (1 + |plain|) of its plain version in fp32, and of K11 on the same
+    windows; one launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=cuda).manual_seed(14)
     qkv = _rn(gen, cuda, 48, 196, 3 * 768)

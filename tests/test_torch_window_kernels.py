@@ -138,35 +138,58 @@ def test_window_attention_relpos_batched_plain_matches_pallas(group, hd):
     _close(got, k12.reshape(NW, N, HEADS, hd).permute(0, 2, 1, 3).numpy())
 
 
-def test_window_attention_rows_grid_plain_matches_pallas_at_head_dim_80():
-    """K2 at vit_h's head_dim 80 (2 heads, a 6x6 grid padded to 8x8 at
-    window 4): the JAX body's non-merged branch, the scale after the fp32
-    product, against fused_block.py::window_attention_rows_grid."""
-    r = np.random.default_rng(22)
-    B, H, hd, Hp = 2, 6, 80, 8
+def _grid_case(seed, hd, bias_scale=1.0):
+    """K2 on a 6x6 grid padded to 8x8 at window 4 (2 heads), bias rows
+    scaled by bias_scale, against fused_block.py::window_attention_rows_grid."""
+    r = np.random.default_rng(seed)
+    B, H, Hp = 2, 6, 8
     C3 = 3 * HEADS * hd
     grid = np.zeros((B, Hp, Hp, C3), np.float32)
     grid[:, :H, :H] = r.normal(size=(B, H, H, C3))
     bias = (0.5 * r.normal(size=C3)).astype(np.float32)
     rows = (B, Hp // WIN, Hp // WIN, HEADS, N, WIN)
-    bh, bw = (r.normal(size=rows).astype(np.float32) for _ in range(2))
+    bh, bw = ((bias_scale * r.normal(size=rows)).astype(np.float32) for _ in range(2))
     want = jblock.window_attention_rows_grid(*map(jnp.asarray, (grid, bias, bh, bw)), WIN,
                                              HEADS, interpret=True)
     _close(fused_block.window_attention_rows_grid(t(grid), t(bias), t(bh), t(bw), WIN, HEADS),
            want)
 
 
-def test_attention_relpos_rows_plain_matches_pallas_at_head_dim_80():
-    """K3 at head_dim 80 on a 6x6 grid (vit_h's global blocks are 16x16 at
-    256 px) against attention.py::attention_relpos_rows."""
-    r = np.random.default_rng(23)
-    B, H, W, D = 2, 6, 6, 80
+def _global_case(seed, D, bias_scale=1.0):
+    """K3 on a 6x6 grid (2 heads), bias rows scaled by bias_scale, against
+    attention.py::attention_relpos_rows."""
+    r = np.random.default_rng(seed)
+    B, H, W = 2, 6, 6
     q = (r.normal(size=(B, HEADS, H * W, D)) * D ** -0.5).astype(np.float32)
     k, v = (r.normal(size=(B, HEADS, H * W, D)).astype(np.float32) for _ in range(2))
-    bh = r.normal(size=(B, HEADS, H * W, H)).astype(np.float32)
-    bw = r.normal(size=(B, HEADS, H * W, W)).astype(np.float32)
+    bh = (bias_scale * r.normal(size=(B, HEADS, H * W, H))).astype(np.float32)
+    bw = (bias_scale * r.normal(size=(B, HEADS, H * W, W))).astype(np.float32)
     want = jattn.attention_relpos_rows(*map(jnp.asarray, (q, k, v, bh, bw)), (H, W), True)
     _close(attention.attention_relpos_rows(t(q), t(k), t(v), t(bh), t(bw), (H, W)), want)
+
+
+def test_window_attention_rows_grid_plain_matches_pallas_at_head_dim_80():
+    """K2 at vit_h's head_dim 80: the JAX body's non-merged branch, the
+    scale after the fp32 product."""
+    _grid_case(22, 80)
+
+
+def test_attention_relpos_rows_plain_matches_pallas_at_head_dim_80():
+    """K3 at head_dim 80 (vit_h's global blocks are 16x16 at 256 px)."""
+    _global_case(23, 80)
+
+
+@pytest.mark.parametrize("hd", [HD, 80], ids=["hd8", "hd80"])
+def test_window_attention_rows_grid_plain_matches_pallas_with_peaked_scores(hd):
+    """K2 with the bias rows scaled x8, as the CUDA tests' peaked cases:
+    row maxima fall off the diagonal and p is nearly one-hot."""
+    _grid_case(24, hd, bias_scale=8.0)
+
+
+@pytest.mark.parametrize("hd", [HD, 80], ids=["hd8", "hd80"])
+def test_attention_relpos_rows_plain_matches_pallas_with_peaked_scores(hd):
+    """K3 with the bias rows scaled x8 (the CUDA tests' peaked cases)."""
+    _global_case(25, hd, bias_scale=8.0)
 
 
 def test_window_attention_rows_matches_grid_kernel_on_partitioned_grid():
