@@ -67,7 +67,7 @@ KERNEL_META = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
     "attention_relpos_rows": ("sam_road_tpu_torch/csrc/relpos_attention.cu",
                               "sam_road_tpu/ops/attention.py:188"),
     "proj_ln_mlp_residual": ("sam_road_tpu_torch/csrc/gemm.cu", "sam_road_tpu/ops/fused_ln.py:188"),
-    "fused_attention": ("sam_road_tpu_torch/csrc/flash_attention.cu",
+    "fused_attention": ("sam_road_tpu_torch/csrc/relpos_attention.cu",
                         "sam_road_tpu/ops/attention.py:265"),
 }
 # phase 9: the training CLI over the flagship config's keys plus these
@@ -193,6 +193,26 @@ RELPOS_LOOP = dict(iters=20, reps=3)
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+def print_ptxas(log_path: str, kernels) -> None:
+    """ptxas's registers, spills and shared memory (nvcc --ptxas-options=-v,
+    in the build log) of every instance of the named kernels, demangled."""
+    import re
+
+    if not os.path.exists(log_path):
+        print(f"no ptxas log at {log_path}", flush=True)
+        return
+    name = None
+    for line in open(log_path).read().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = subprocess.run(["c++filt", m.group(1)], capture_output=True, text=True,
+                                  timeout=60).stdout.strip()
+        elif name and any(k in name for k in kernels) and re.search(
+                r"registers|spill|stack|smem", line):
+            short = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            print(f"ptxas {short.split('(')[0]}: {line.split(':', 1)[-1].strip()}", flush=True)
 
 
 def gpu_line() -> str:
@@ -447,6 +467,47 @@ def timing_row(name: str, args, out, kern, plain, fwd_bwd: bool = False, flops=N
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound(flops, moved, peak))
 
 
+def product_alone(name: str, args):
+    """For a GEMM kernel (K1, K4, K9): a call of torch.matmul (cuBLAS) on the
+    same bf16 products alone, without the LN, the epilogues or the launches'
+    order: a yardstick for the main loop, not the same function (the
+    `kernels` line's library_ms stays None). None for any other kernel."""
+    import torch
+
+    def mm(a, w):
+        out = torch.empty((a.shape[0], w.shape[0]), dtype=a.dtype, device=a.device)
+        return lambda: torch.matmul(a, w.t(), out=out)
+
+    if name.startswith("ln_dense"):  # x, ln_s, ln_b, w, bias
+        prods = [mm(args[0], args[3])]
+    elif name == "proj_ln_mlp_residual":  # x, a, wp, bp, ln_s, ln_b, w1, b1, w2, b2
+        mid = torch.empty((args[0].shape[0], args[6].shape[0]), dtype=args[0].dtype,
+                          device=args[0].device)
+        prods = [mm(args[1], args[2]), mm(args[0], args[6]), mm(mid.zero_(), args[8])]
+    elif name == "ln_mlp_residual":  # x, ln_s, ln_b, w1, b1, w2, b2
+        mid = torch.empty((args[0].shape[0], args[3].shape[0]), dtype=args[0].dtype,
+                          device=args[0].device)
+        prods = [mm(args[0], args[3]), mm(mid.zero_(), args[5])]
+    else:
+        return None
+
+    def run():
+        for p in prods:
+            p()
+    return run
+
+
+def with_product_alone(row: dict, name: str, args) -> str:
+    """Add `product_alone_cublas_ms` to a GEMM kernel's row; the text to
+    print."""
+    run = product_alone(name, args)
+    if run is None:
+        return ""
+    row["product_alone_cublas_ms"] = cuda_ms(run)
+    return (f" product alone (cuBLAS), not the same function: "
+            f"{row['product_alone_cublas_ms']:.4f} ms")
+
+
 def check_kernels(B: int, dev: str = "cuda"):
     """Phase 3: each kernel against its plain version at the bench shapes;
     K2's and K3's rows also carry the profiler's kernel time and the
@@ -510,8 +571,9 @@ def check_kernels(B: int, dev: str = "cuda"):
         del ref, err
         row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args))
         device = ""
-        if name in ("window_attention_rows_grid", "attention_relpos_rows"):
-            device = " " + fmt_device(with_device_time(row, lambda: kern(*args), dev))
+        device = " " + fmt_device(with_device_time(row, lambda: kern(*args), dev))
+        if dev == "cuda":
+            device += with_product_alone(row, name, args)
         ok = finite and max_rel <= TOL
         print(f"kernel {name}: shape {tuple(got.shape)} max_abs_err {max_abs:.3e} "
               f"max_rel_err {max_rel:.3e} (tol {TOL}) {fmt_times(row)}{device} "
@@ -529,31 +591,38 @@ def fmt_times(row: dict) -> str:
             f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
 
 
-def flash_cases(dev: str = "cuda"):
-    """K5's shapes on the main path, bf16, as [B, heads, N, D] with D = 64 +
-    H + W: the ViT-B 512 px windows (16 images x 9 windows, 196 tokens), its
-    global grid (16 images, 1024 tokens) and the 1024 px config's global grid
-    (2 images, 4096 tokens). q is scaled and carries q.R columns; k carries
-    the exact one-hot position columns, as models/vit.py::fold_rel_pos_qk
-    builds them."""
+# K5's shapes (label, windows or images, grid side, heads, head_dim): the
+# ViT-B 512 px training batch's windows (16 images x 9 windows of 196
+# tokens, D 92 padded to 96), its global grid (D 128), the 1024 px config's
+# global grid (2 images, 4096 tokens, D 192), the 256 px configs' global grid
+# (ViT-B and vit_l, D 96), and vit_h's windows (16 images x 4, D 108 padded
+# to 112) and 256 px global grid (D 112) with the eager encoder
+FLASH_CASES = (("window 14x14", 16 * 9, 14, 12, 64), ("global 32x32", 16, 32, 12, 64),
+               ("global 64x64", 2, 64, 12, 64), ("global 16x16", 16, 16, 12, 64),
+               ("vit_h window 14x14", 16 * 4, 14, 16, 80), ("vit_h global 16x16", 16, 16, 16, 80))
+
+
+def flash_cases(dev: str = "cuda", cases=FLASH_CASES):
+    """K5's inputs at its main-path shapes, bf16: random q, k, v [B, heads,
+    N, hd] and rel-pos tables folded by models/vit.py::fold_rel_pos_qk (q~
+    scaled and carrying q.R columns, k~ the exact one-hot position columns,
+    both padded to a multiple of 16), and a cotangent."""
     import torch
-    import torch.nn.functional as F
+
+    from sam_road_tpu_torch.models.vit import fold_rel_pos_qk
 
     gen = torch.Generator(device=dev).manual_seed(3)
     bf = torch.bfloat16
-    heads, hd = 12, 64
-    for name, B, side in (("window 14x14", 16 * 9, 14), ("global 32x32", 16, 32),
-                          ("global 64x64", 2, 64)):
+    for name, B, side, heads, hd in cases:
         N = side * side
-        q = torch.randn((B, heads, N, hd), generator=gen, device=dev) * hd ** -0.5
-        qr = torch.randn((B, heads, N, 2 * side), generator=gen, device=dev) * 0.3
-        k = torch.randn((B, heads, N, hd), generator=gen, device=dev)
-        idx = torch.arange(N, device=dev)
-        pos = torch.cat([F.one_hot(idx // side, side), F.one_hot(idx % side, side)], dim=1)
-        q = torch.cat([q, qr], dim=-1).to(bf)
-        k = torch.cat([k, pos.float().expand(B, heads, N, 2 * side)], dim=-1).to(bf)
-        v = torch.randn((B, heads, N, hd), generator=gen, device=dev).to(bf)
-        g = torch.randn((B, heads, N, hd), generator=gen, device=dev).to(bf)
+
+        def rn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+        q, k, v, g = (rn(B, heads, N, hd) for _ in range(4))
+        Rh, Rw = (rn(side, side, hd, scale=0.3 * hd ** -0.5) for _ in range(2))
+        q, k = (t.contiguous() for t in fold_rel_pos_qk(q, k, Rh, Rw, (side, side),
+                                                        hd ** -0.5))
         yield name, q, k, v, g
 
 
@@ -588,10 +657,12 @@ def check_flash_attention(dev: str = "cuda"):
             row = timing_row("fused_attention", (q, k, v), out,
                              lambda: attention.fused_attention(q, k, v),
                              lambda: attention.fused_attention_plain(q, k, v))
+            device = fmt_device(with_device_time(
+                row, lambda: attention.fused_attention(q, k, v), dev))
         ok = finite and fwd_rel <= TOL and bwd_rel <= TOL
         print(f"kernel fused_attention {name}: q {tuple(q.shape)} v {tuple(v.shape)} "
               f"max_abs_err {max_abs:.3e} max_rel_err {fwd_rel:.3e} grad_max_rel_err "
-              f"{bwd_rel:.3e} (tol {TOL}) {fmt_times(row)} {'ok' if ok else 'FAIL'}",
+              f"{bwd_rel:.3e} (tol {TOL}) {fmt_times(row)} {device} {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
             raise SystemExit(f"fused_attention disagrees with its plain version at {name}")
@@ -1176,12 +1247,13 @@ def check_grid_kernels(B: int, dev: str = "cuda"):
         max_abs, max_rel = err.max().item(), (err / (1 + ref.abs())).max().item()
         del ref, err, want
         row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args))
+        device = fmt_device(with_device_time(row, lambda: kern(*args), dev))
         default_ms = cuda_ms(default_way)
         ok = same and max_rel <= TOL and bool(torch.isfinite(got.float()).all())
         print(f"kernel {name}: shape {tuple(got.shape)} bit-equal to the default path "
               f"{same} max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} (tol {TOL}) "
-              f"{fmt_times(row)} default_path_ms {default_ms:.4f} {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"{fmt_times(row)} {device} default_path_ms {default_ms:.4f} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"kernel {name} disagrees with the default path or its plain version")
         results[name] = dict(max_abs_err=max_abs, default_path_ms=default_ms, **row)
@@ -1436,10 +1508,15 @@ def check_tool_kernels(dev: str = "cuda", tokens: int = 32 * 1024, dim: int = 76
         max_abs, max_rel = err.max().item(), (err / (1 + ref.abs())).max().item()
         del ref, err
         row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args))
+        alone = ""
+        if name == "ln_mlp_residual":
+            alone = " " + fmt_device(with_device_time(row, lambda: kern(*args), dev))
+            if dev == "cuda":
+                alone += with_product_alone(row, name, args)
         ok = same and max_rel <= TOL and bool(torch.isfinite(got.float()).all())
         print(f"kernel {name}: shape {tuple(got.shape)} groups 2 and 4 bit-equal to 1 {same} "
               f"max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} (tol {TOL}) "
-              f"{fmt_times(row)} {'ok' if ok else 'FAIL'}", flush=True)
+              f"{fmt_times(row)}{alone} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"kernel {name} disagrees with its plain version or across groups")
         results[name] = dict(max_abs_err=max_abs, **row)
@@ -1976,8 +2053,9 @@ def main():
     from sam_road_tpu_torch.ops import _build
 
     t = time.time()
-    _build.kernels()
+    lib = _build.kernels()
     print(f"built CUDA kernels in {time.time() - t:.1f} s", flush=True)
+    print_ptxas(lib._name + ".log", ("gemm_kernel", "ln_stats_kernel", "relpos_attention_kernel"))
     t = time.time()
     nms_lib(), pairs_lib()
     print(f"built host native libs in {time.time() - t:.1f} s", flush=True)

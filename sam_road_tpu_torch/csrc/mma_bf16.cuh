@@ -1,7 +1,10 @@
 // Register-level building blocks of the attention kernels
-// (window_attention.cu, relpos_attention.cu): cp.async copies into shared
-// memory, ldmatrix loads of mma fragments, the bf16 m16n8k16 tensor-core
-// product with fp32 accumulation (mma.sync), and ex2.approx.
+// (window_attention.cu, relpos_attention.cu) and the GEMM (gemm.cu):
+// cp.async copies into shared memory, ldmatrix loads of mma fragments, the
+// bf16 m16n8k16 tensor-core product with fp32 accumulation (mma.sync),
+// ex2.approx, Hopper's warpgroup products (wgmma) from registers or from
+// shared memory in the no-swizzle and the 128-byte-swizzled layouts, and
+// mbarriers.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major)   reg 0: row g,     cols 2t, 2t+1
@@ -115,6 +118,55 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void wgmma_commit_and_wait() {
   asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of this warpgroup's committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A K-major tile in the 128-byte-swizzled layout: rows of 64 bf16 (128
+// bytes) one after the other, 16-byte chunk c of row r stored at chunk
+// c ^ (r % 8), the tile 1024-byte aligned (the swizzle XORs address bits
+// 4-6 with bits 7-9). This is what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B.
+// SBO is 1024 bytes (8 rows); LBO is unused for a K-major swizzled operand
+// whose K step (16 values, 32 bytes) lies inside one row. Step kk of a
+// 64-deep tile is the descriptor + 2 kk (the start address advances 32 bytes
+// and the hardware applies the swizzle to the address it computes).
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// ---- mbarriers (the TMA copies of gemm.cu report to them) ----
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// one arrival that also expects `bytes` of asynchronous copies
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// spin until the phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous product (before wgmma_fence and after the wait)
 template <int R>
@@ -165,6 +217,46 @@ __device__ __forceinline__ void wgmma_rs<80, 1>(float (&d)[40], const uint32_t (
       "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
       : SAMROAD_F8(0), SAMROAD_F8(8), SAMROAD_F8(16), SAMROAD_F8(24), SAMROAD_F8(32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x N] += A (descriptor, 64 x 16) . B (descriptor, 16 x N), both
+// K-major, bf16, fp32 accumulator (scale-d 1: accumulate).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SAMROAD_F8(0), SAMROAD_F8(8), SAMROAD_F8(16), SAMROAD_F8(24),
+        SAMROAD_F8(32), SAMROAD_F8(40), SAMROAD_F8(48), SAMROAD_F8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : SAMROAD_F8(0), SAMROAD_F8(8), SAMROAD_F8(16), SAMROAD_F8(24),
+        SAMROAD_F8(32), SAMROAD_F8(40), SAMROAD_F8(48), SAMROAD_F8(56),
+        SAMROAD_F8(64), SAMROAD_F8(72), SAMROAD_F8(80), SAMROAD_F8(88),
+        SAMROAD_F8(96), SAMROAD_F8(104), SAMROAD_F8(112), SAMROAD_F8(120)
+      : "l"(a), "l"(b), "r"(1));
 }
 #undef SAMROAD_F8
 

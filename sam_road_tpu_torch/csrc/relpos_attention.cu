@@ -1,10 +1,10 @@
 // Global attention with decomposed relative-position bias rows: the CUDA
 // kernel behind K3 (attention_relpos_rows) of
 // sam_road_tpu_torch/ops/attention.py (and K6's attention_relpos_rows_d
-// forward), and, as further modes of the same loop, the tool kernels T1
-// (diag_attn) of sam_road_tpu_torch/tools/experiment_group_window.py and T5's
-// global case (inker_attention) of
-// sam_road_tpu_torch/tools/experiment_block_variants.py.
+// forward), and, as further modes of the same loop, K5 (fused_attention) of
+// the same module, the tool kernels T1 (diag_attn) of
+// sam_road_tpu_torch/tools/experiment_group_window.py and T5's global case
+// (inker_attention) of sam_road_tpu_torch/tools/experiment_block_variants.py.
 //
 // K3 replaces sam_road_tpu/ops/attention.py::attention_relpos_rows
 // (_relpos_rows_kernel), which holds all N x N scores of one (image, head)
@@ -68,6 +68,30 @@
 // bytes (385 MB at the tool's shapes, 0.115 ms) up to g = 2, its g-fold
 // score work (34 g GFLOP) beyond.
 //
+// K5 (MODE_FOLDED) replaces sam_road_tpu/ops/attention.py::fused_attention
+// (_flash_forward: the whole-N _flash_kernel and the kv-tiled
+// _blocked_kernel): softmax(q~.k~^T).v over the folded
+// q~ = [q scale, q.Rh, q.Rw] and k~ = [k, onehot(row), onehot(col)]
+// (models/vit.py::fold_rel_pos_qk), every attention of the eager encoder.
+// The contraction width D = head_dim + H + W is a template parameter DQK of
+// its own beside the value width HD: instances (DQK, HD) = (96, 64) (ViT-B /
+// vit_l 14 x 14 windows, D 92, and 16 x 16 global grids), (128, 64) (32 x 32),
+// (192, 64) (64 x 64, the 1024 px config) and (112, 80) (vit_h's windows, D
+// 108, and 16 x 16 grid). A D below DQK is zero-filled to it in shared
+// memory. q~ arrives scaled, so the scale is 1 and there are no bias rows.
+// Rows of D 92 or 108 bf16 (184, 216 bytes) are 8-byte aligned only, which
+// 16-byte cp.async cannot read: fold_rel_pos_qk pads q~ and k~ with zero
+// columns to a multiple of 16 while it concatenates (zero columns add
+// nothing to a score, and the concatenation writes the padded tensor in the
+// same pass), so the kernel takes any D % 8 == 0 up to DQK and every copy
+// stays 16 bytes. Windows are ragged (N = 196 = 3 x 64 + 4), with T1's
+// select masks: keys past N are -inf, query rows past N load as zeros and
+// are not stored. At DQK 192 the q fragments take 48 registers a thread
+// beside 32 of S and 32 of O; the block holds q 51 KB, the k ring 72 KB and
+// the v ring 24 KB (146 KB: one block an SM). Bound: operations at the
+// global grids (2 N^2 (D + HD) a (image, head): 0.078 ms at 512 px, 0.209 at
+// 1024 px), bytes at the windows (0.063 ms).
+//
 // T5's global case (MODE_TABLE) replaces
 // tools/experiment_block_variants.py::inker_attention (make_inker_kernel)
 // at N = 1024 tokens (a 32 x 32 grid): K3's function with the bias rows built
@@ -91,12 +115,13 @@ using namespace samroad_mma;
 
 namespace {
 
+// the query tile (two warpgroups of 64 rows) and the k / v ring's depth
 constexpr int BQ = 128, BKV = 64, STAGES = 3;
 constexpr int WARPS = BQ / 16;
 constexpr int THREADS = WARPS * 32;
 constexpr int SMEM_MAX = 232448;  // a block's dynamic shared memory on Hopper
 
-enum Mode { MODE_RELPOS = 0, MODE_DIAG = 1, MODE_TABLE = 2 };
+enum Mode { MODE_RELPOS = 0, MODE_DIAG = 1, MODE_TABLE = 2, MODE_FOLDED = 3 };
 constexpr int TABLE_W = 64;    // MODE_TABLE: bias-row floats per query row (Hg + Wg at most)
 // the fp32 bias rows sit column-major, column c of row r at c * TAB_LD + r:
 // a quad's 8 rows and 4 columns fall in 32 distinct banks
@@ -110,44 +135,45 @@ struct Args {
   int Hg, Wg;                // K3, MODE_TABLE: the token grid; MODE_DIAG: tokens per window, win
   int C, heads;              // MODE_DIAG
   float scale;               // MODE_DIAG, MODE_TABLE
+  int D;                     // MODE_FOLDED: q~ / k~ row length (<= DQK); else head_dim
 };
 
-// fp32 bias values per query row: [bh | bw]
+// fp32 bias values per query row: [bh | bw]; none in MODE_FOLDED
 template <int MODE>
 __host__ __device__ int bias_width(const Args& a) {
-  return MODE == MODE_DIAG ? 2 * a.Wg : a.Hg + a.Wg;
+  return MODE == MODE_DIAG ? 2 * a.Wg : MODE == MODE_FOLDED ? 0 : a.Hg + a.Wg;
 }
 
-// dynamic shared memory: q [BQ][HD + 8], k and v [STAGES][BKV * HD]
-// (bf16), then the fp32 bias columns [bias_width][TAB_LD]
-template <int HD, int MODE>
+// dynamic shared memory: q [BQ][DQK + 8], k [STAGES][BKV * DQK] and v
+// [STAGES][BKV * HD] (bf16), then the fp32 bias columns [bias_width][TAB_LD]
+template <int DQK, int HD, int MODE>
 __host__ __device__ int smem_bytes(const Args& a) {
-  return (BQ * (HD + 8) + 2 * STAGES * BKV * HD) * (int)sizeof(bf16) +
+  return (BQ * (DQK + 8) + STAGES * BKV * (DQK + HD)) * (int)sizeof(bf16) +
          TAB_LD * bias_width<MODE>(a) * 4;
 }
 
-// rows [0, BQ) of the q tile, row-major HD + 8 apart (for ldmatrix), by
-// cp.async; rows from `valid` on are zero-filled
-template <int HD>
+// rows [0, BQ) of the q tile, row-major W + 8 apart (for ldmatrix), by
+// cp.async; rows from `valid` on and columns from `cols` on are zero-filled
+template <int W>
 __device__ __forceinline__ void load_q_tile(bf16* dst, const bf16* src, int64_t stride,
-                                            int valid) {
-  for (int e = threadIdx.x; e < BQ * (HD / 8); e += THREADS) {
-    const int r = e / (HD / 8), c = (e % (HD / 8)) * 8;
-    const bool ok = r < valid;
-    cp_async<16>(dst + r * (HD + 8) + c, ok ? src + r * stride + c : src, ok);
+                                            int valid, int cols) {
+  for (int e = threadIdx.x; e < BQ * (W / 8); e += THREADS) {
+    const int r = e / (W / 8), c = (e % (W / 8)) * 8;
+    const bool ok = r < valid && c < cols;
+    cp_async<16>(dst + r * (W + 8) + c, ok ? src + r * stride + c : src, ok);
   }
 }
 
-// a 64-row k or v tile in wgmma's no-swizzle layout: 16-byte chunk c of row
-// r at element ((r / 8) (HD / 8) + c) 64 + (r % 8) 8, so consecutive
-// threads fill consecutive shared-memory chunks; rows from `valid` on are
-// zero-filled
-template <int HD>
+// a 64-row k or v tile, W wide, in wgmma's no-swizzle layout: 16-byte chunk
+// c of row r at element ((r / 8) (W / 8) + c) 64 + (r % 8) 8, so
+// consecutive threads fill consecutive shared-memory chunks; rows from
+// `valid` on and columns from `cols` on are zero-filled
+template <int W>
 __device__ __forceinline__ void load_kv_tile(bf16* dst, const bf16* src, int64_t stride,
-                                             int valid) {
-  for (int e = threadIdx.x; e < BKV * (HD / 8); e += THREADS) {
-    const int r = (e >> 3) / (HD / 8) * 8 + (e & 7), c = (e >> 3) % (HD / 8) * 8;
-    const bool ok = r < valid;
+                                             int valid, int cols = W) {
+  for (int e = threadIdx.x; e < BKV * (W / 8); e += THREADS) {
+    const int r = (e >> 3) / (W / 8) * 8 + (e & 7), c = (e >> 3) % (W / 8) * 8;
+    const bool ok = r < valid && c < cols;
     cp_async<16>(dst + e * 8, ok ? src + r * stride + c : src, ok);
   }
 }
@@ -190,15 +216,16 @@ struct KeyPos {
   }
 };
 
-template <int HD, int MODE>
+// DQK: the q / k width (head_dim but in MODE_FOLDED); HD: v's and the output's
+template <int DQK, int HD, int MODE>
 __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LD = HD + 8;
+  constexpr int LD = DQK + 8;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  constexpr int KV = BKV * HD;  // bf16 elements of a k or v tile
-  bf16* Ks = Qs + BQ * LD;  // [STAGES][KV]
-  bf16* Vs = Ks + STAGES * KV;
-  float* tab = reinterpret_cast<float*>(Vs + STAGES * KV);
+  constexpr int KT = BKV * DQK, VT = BKV * HD;  // bf16 elements of a k, a v tile
+  bf16* Ks = Qs + BQ * LD;  // [STAGES][KT]
+  bf16* Vs = Ks + STAGES * KT;
+  float* tab = reinterpret_cast<float*>(Vs + STAGES * VT);
   const int nb = bias_width<MODE>(a);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -206,29 +233,34 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
   const int64_t bhid = blockIdx.y;          // image x head, or group x head
   const int q0 = blockIdx.x * BQ;
   const int N = a.N;
-  // token 0 of this (image, head) in q / k / v / out, and the token stride
-  int64_t base, out_base, stride, out_stride;
+  // token 0 of this (image, head) in q / k, v and out, and the token strides
+  int64_t base, vbase, out_base, stride, vstride, out_stride;
   if constexpr (MODE == MODE_DIAG) {
     const int64_t grp = bhid / a.heads, head = bhid % a.heads;
-    base = grp * N * 3 * a.C + head * HD;
+    base = vbase = grp * N * 3 * a.C + head * HD;
     out_base = grp * N * a.C + head * HD;
-    stride = 3 * a.C;
+    stride = vstride = 3 * a.C;
     out_stride = a.C;
   } else {
-    base = out_base = bhid * N * HD;
-    stride = out_stride = HD;
+    base = bhid * N * (MODE == MODE_FOLDED ? a.D : HD);
+    stride = MODE == MODE_FOLDED ? a.D : HD;
+    vbase = out_base = bhid * N * HD;
+    vstride = out_stride = HD;
   }
+  // q / k columns to load: MODE_FOLDED's D (the rest of DQK is zero-filled);
+  // the other modes' whole head, a constant
+  const int D = MODE == MODE_FOLDED ? a.D : DQK;
 
   // the q tile, then the first STAGES - 1 k / v tiles, one group each
-  load_q_tile<HD>(Qs, a.q + base + q0 * stride, stride, N - q0);
+  load_q_tile<DQK>(Qs, a.q + base + q0 * stride, stride, N - q0, D);
   cp_async_commit();
   const int nt = (N + BKV - 1) / BKV;
   for (int t = 0; t < STAGES - 1; ++t) {
     if (t < nt) {
-      load_kv_tile<HD>(Ks + t * KV, a.k + base + (int64_t)t * BKV * stride, stride,
-                           N - t * BKV);
-      load_kv_tile<HD>(Vs + t * KV, a.v + base + (int64_t)t * BKV * stride, stride,
-                           N - t * BKV);
+      load_kv_tile<DQK>(Ks + t * KT, a.k + base + (int64_t)t * BKV * stride, stride,
+                        N - t * BKV, D);
+      load_kv_tile<HD>(Vs + t * VT, a.v + vbase + (int64_t)t * BKV * vstride, vstride,
+                       N - t * BKV);
     }
     cp_async_commit();
   }
@@ -260,18 +292,19 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
   }
 
   // this warp's q fragments (rows warp * 16 ..)
-  uint32_t qa[HD / 16][4];
+  uint32_t qa[DQK / 16][4];
 #pragma unroll
-  for (int c = 0; c < HD / 16; ++c)
+  for (int c = 0; c < DQK / 16; ++c)
     ldmatrix_x4(qa[c], Qs + (warp * 16 + (lm & 1) * 8 + lr) * LD + c * 16 + (lm >> 1) * 8);
 
-  const float sl2 = (MODE == MODE_RELPOS ? 1.f : a.scale) * LOG2E;
+  const float sl2 = (MODE == MODE_RELPOS || MODE == MODE_FOLDED ? 1.f : a.scale) * LOG2E;
   const int rq[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's two rows in the tile
   const int hoff = MODE == MODE_DIAG ? a.Wg : a.Hg;  // bw's offset in a bias row
   // MODE_DIAG: the query's window (rows past N: the last row's) and the
   // place of key 2tq, advanced 8 keys an n8 tile. Else Wg % 8 == 0: the 8
   // keys of n8 tile t' share grid row ki and start at column kjb.
-  const int Nw = a.Hg, I = a.Wg, J = a.Wg;
+  // MODE_FOLDED walks no grid (J is 1 there only to keep the divisions defined).
+  const int Nw = a.Hg, I = a.Wg, J = MODE == MODE_FOLDED ? 1 : a.Wg;
   int qw[2] = {0, 0};
   KeyPos kp{0, (2 * tq) / J, (2 * tq) % J};
   if constexpr (MODE == MODE_DIAG) {
@@ -285,7 +318,8 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  constexpr uint32_t CORE = 128, ROW8 = HD / 8 * 128;  // byte strides of core matrices
+  // byte strides of core matrices: along K, and along N of k (ROW8K) and of v (ROW8)
+  constexpr uint32_t CORE = 128, ROW8K = DQK / 8 * 128, ROW8 = HD / 8 * 128;
 
   for (int j = 0; j < nt; ++j) {
     cp_async_wait<STAGES - 2>();  // tile j has landed
@@ -295,15 +329,15 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
       const int jn = j + STAGES - 1;
       if (jn < nt) {
         const int st = jn % STAGES;
-        load_kv_tile<HD>(Ks + st * KV, a.k + base + (int64_t)jn * BKV * stride, stride,
-                             N - jn * BKV);
-        load_kv_tile<HD>(Vs + st * KV, a.v + base + (int64_t)jn * BKV * stride, stride,
-                             N - jn * BKV);
+        load_kv_tile<DQK>(Ks + st * KT, a.k + base + (int64_t)jn * BKV * stride, stride,
+                          N - jn * BKV, D);
+        load_kv_tile<HD>(Vs + st * VT, a.v + vbase + (int64_t)jn * BKV * vstride, vstride,
+                         N - jn * BKV);
       }
       cp_async_commit();
     }
-    const bf16* Kt = Ks + (j % STAGES) * KV;
-    const bf16* Vt = Vs + (j % STAGES) * KV;
+    const bf16* Kt = Ks + (j % STAGES) * KT;
+    const bf16* Vt = Vs + (j % STAGES) * VT;
 
     // S = q . k^T: k is B, K-major (d contiguous); step c takes d chunks 2c, 2c + 1
     float s[BKV / 2];  // n8 tile t at s[4t ..]
@@ -313,8 +347,8 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
     __syncwarp();  // wgmma.fence and wgmma are .aligned: the warp must be converged
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < HD / 16; ++c)
-      wgmma_rs<BKV, 0>(s, qa[c], wgmma_desc(Kt + c * 2 * 64, CORE, ROW8));
+    for (int c = 0; c < DQK / 16; ++c)
+      wgmma_rs<BKV, 0>(s, qa[c], wgmma_desc(Kt + c * 2 * 64, CORE, ROW8K));
     wgmma_commit_and_wait();
     fence_regs(s);
 
@@ -337,6 +371,9 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
             v = key >= N ? -INFINITY         // past g N: not a key
                 : p.w != qw[h] ? -1e30f      // another window's key
                 : sv;
+          } else if constexpr (MODE == MODE_FOLDED) {  // a select: keys past N are -inf
+            const int key = j * BKV + t * 8 + 2 * tq + e;
+            v = key >= N ? -INFINITY : v * sl2;
           } else {
             v = fmaf(v, sl2,
                      (row[ki * TAB_LD] + row[(hoff + kjb + 2 * tq + e) * TAB_LD]) * LOG2E);
@@ -346,7 +383,7 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
       }
       if constexpr (MODE == MODE_DIAG) {
         kp.advance(si, sj, I, J);
-      } else {
+      } else if constexpr (MODE != MODE_FOLDED) {
         kjb += 8;
         if (kjb == J) {
           kjb = 0;
@@ -415,22 +452,22 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(Args a) {
   }
 }
 
-template <int HD, int MODE>
+template <int DQK, int HD, int MODE>
 int launch(const Args& a, int BH, cudaStream_t stream) {
-  const int bytes = smem_bytes<HD, MODE>(a);
+  const int bytes = smem_bytes<DQK, HD, MODE>(a);
   if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(relpos_attention_kernel<HD, MODE>,
+  cudaError_t e = cudaFuncSetAttribute(relpos_attention_kernel<DQK, HD, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.N + BQ - 1) / BQ, BH);
-  relpos_attention_kernel<HD, MODE><<<grid, THREADS, bytes, stream>>>(a);
+  relpos_attention_kernel<DQK, HD, MODE><<<grid, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
 int launch_hd(const Args& a, int hd, int BH, cudaStream_t stream) {
-  if (hd == 64) return launch<64, MODE>(a, BH, stream);
-  if (hd == 80) return launch<80, MODE>(a, BH, stream);
+  if (hd == 64) return launch<64, 64, MODE>(a, BH, stream);
+  if (hd == 80) return launch<80, 80, MODE>(a, BH, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -447,7 +484,8 @@ int samroad_relpos_attention(const void* q, const void* k, const void* v,
   if (N != Hg * Wg || N % BKV || Wg % 8 || BH <= 0) return (int)cudaErrorInvalidValue;
   Args a{reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
          reinterpret_cast<const bf16*>(v), reinterpret_cast<const bf16*>(bh),
-         reinterpret_cast<const bf16*>(bw), reinterpret_cast<bf16*>(out), N, Hg, Wg, 0, 0, 1.f};
+         reinterpret_cast<const bf16*>(bw), reinterpret_cast<bf16*>(out), N, Hg, Wg, 0, 0, 1.f,
+         hd};
   return launch_hd<MODE_RELPOS>(a, hd, BH, reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -460,7 +498,7 @@ int samroad_diag_attention(const void* qkv, const void* bhw, void* out, int nG, 
   const int hd = C / heads, Nw = win * win;
   const bf16* p = reinterpret_cast<const bf16*>(qkv);
   Args a{p, p + C, p + 2 * C, reinterpret_cast<const bf16*>(bhw), nullptr,
-         reinterpret_cast<bf16*>(out), g * Nw, Nw, win, C, heads, 1.0f / sqrtf((float)hd)};
+         reinterpret_cast<bf16*>(out), g * Nw, Nw, win, C, heads, 1.0f / sqrtf((float)hd), hd};
   return launch_hd<MODE_DIAG>(a, hd, nG * heads, reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -475,8 +513,25 @@ int samroad_relpos_attention_table(const void* q, const void* k, const void* v,
   Args a{reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
          reinterpret_cast<const bf16*>(v), reinterpret_cast<const bf16*>(rh),
          reinterpret_cast<const bf16*>(rw), reinterpret_cast<bf16*>(out), N, Hg, Wg, 0, 0,
-         1.0f / sqrtf((float)hd)};
+         1.0f / sqrtf((float)hd), hd};
   return launch_hd<MODE_TABLE>(a, hd, BH, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K5: q~ (scaled), k~ [BH, N, D] and v [BH, N, dv] -> out [BH, N, dv], bf16;
+// (D, dv) within an instance: dv 64 with D <= 96, 128 or 192, dv 80 with
+// D <= 112; D % 8 == 0 (16-byte rows). Any N.
+int samroad_folded_attention(const void* q, const void* k, const void* v, void* out, int BH,
+                             int N, int D, int dv, void* stream) {
+  if (BH <= 0 || N <= 0 || D <= 0 || D % 8) return (int)cudaErrorInvalidValue;
+  Args a{reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
+         reinterpret_cast<const bf16*>(v), nullptr, nullptr, reinterpret_cast<bf16*>(out), N,
+         0, 0, 0, 0, 1.f, D};
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (dv == 64 && D <= 96) return launch<96, 64, MODE_FOLDED>(a, BH, s);
+  if (dv == 64 && D <= 128) return launch<128, 64, MODE_FOLDED>(a, BH, s);
+  if (dv == 64 && D <= 192) return launch<192, 64, MODE_FOLDED>(a, BH, s);
+  if (dv == 80 && D <= 112) return launch<112, 80, MODE_FOLDED>(a, BH, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -21,9 +21,8 @@ import shutil
 from sam_road_tpu_torch._native import PKG_DIR, build_and_load
 
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "flash_attention.cu",
-           "probes.cu")
-HEADERS = ("mma_bf16.cuh",)  # included by window_attention.cu and relpos_attention.cu
+SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "probes.cu")
+HEADERS = ("mma_bf16.cuh",)  # included by gemm.cu and the attention kernels
 # --ptxas-options=-v: each instance's registers and spills, in the build log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v"]
@@ -37,17 +36,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "samroad_ln_dense": [_P] * 6 + [_I] * 3 + [_P],
-    "samroad_proj_ln_mlp_residual": [_P] * 13 + [_I] * 3 + [_P],
-    "samroad_ln_dense_padded": [_P] * 5 + [_I] * 7 + [_P],
-    "samroad_proj_ln_mlp_residual_grid": [_P] * 13 + [_I] * 7 + [_P],
-    "samroad_ln_mlp_residual": [_P] * 9 + [_I] * 3 + [_P],
+    "samroad_ln_dense": [_P] * 7 + [_I] * 3 + [_P],
+    "samroad_proj_ln_mlp_residual": [_P] * 14 + [_I] * 3 + [_P],
+    "samroad_ln_dense_padded": [_P] * 6 + [_I] * 7 + [_P],
+    "samroad_proj_ln_mlp_residual_grid": [_P] * 14 + [_I] * 7 + [_P],
+    "samroad_ln_mlp_residual": [_P] * 10 + [_I] * 3 + [_P],
     "samroad_window_attention": [_P] * 5 + [_I] * 8 + [_P],
     "samroad_window_attention_rows": [_P] * 4 + [_I] * 5 + [_P],
     "samroad_window_attention_relpos": [_P] * 4 + [_I] * 5 + [_P],
     "samroad_window_attention_relpos_batched": [_P] * 6 + [_I] * 5 + [_P],
     "samroad_relpos_attention": [_P] * 6 + [_I] * 5 + [_P],
-    "samroad_flash_attention": [_P] * 4 + [_I] * 4 + [_P],
+    "samroad_folded_attention": [_P] * 4 + [_I] * 4 + [_P],
     "samroad_sel_attention": [_P] * 6 + [_I] * 3 + [_P],
     "samroad_window_attn_folded": [_P] * 4 + [_I] * 4 + [_P],
     "samroad_diag_attention": [_P] * 3 + [_I] * 5 + [_P],
@@ -115,6 +114,16 @@ def require(t, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def gemm_block_n(N: int, K: int, name: str) -> int:
+    """The N width of csrc/gemm.cu's block tile for a product with N output
+    columns and depth K: 256 where N % 256 == 0, else 128; raise unless
+    N % 128 == 0 and K % 64 == 0 (a K tile is 64 deep)."""
+    if N <= 0 or K <= 0 or N % 128 or K % 64:
+        raise ValueError(f"{name} kernel needs N % 128 == 0 and K % 64 == 0 (the GEMM's "
+                         f"128- or 256-wide block tile and 64-deep K tiles), got N={N} K={K}")
+    return 256 if N % 256 == 0 else 128
 
 
 def require_head_dim(hd: int, name: str) -> None:

@@ -14,8 +14,7 @@ launches no custom kernel. On a CUDA tensor the forward counts under the
 kernel's name and the wrapper's.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
-hand-written kernel (csrc/relpos_attention.cu, csrc/flash_attention.cu) or
-raises.
+hand-written kernel (csrc/relpos_attention.cu) or raises.
 
 Source notes. K3 replaces attention.py::attention_relpos_rows
 (_relpos_rows_kernel), which holds a whole (image, head)'s 1024 x 1024
@@ -33,9 +32,13 @@ Instances at head_dim 64 and 80 (vit_h's global blocks: 256 tokens at 256
 px); the grid's width must be a multiple of 8 (the bias walks 8 keys of one
 grid row an n8 tile). K5 replaces attention.py::fused_attention
 (_flash_forward: the whole-N _flash_kernel and the kv-tiled _blocked_kernel)
-with a flash loop of its own (csrc/flash_attention.cu, wmma) over a runtime
-contraction width D = head_dim + H + W; it tiles every N, so the XLA fallback for an N
-the TPU kernel cannot tile has no counterpart.
+with a mode of K3's loop (MODE_FOLDED): no bias rows, scale 1, the
+contraction width D = head_dim + H + W a template parameter of its own
+beside the value width, instantiated at (D, dv) = FOLDED_INSTANCES (a
+smaller D % 8 == 0 is zero-filled to its instance; models/vit.py::
+fold_rel_pos_qk pads to a multiple of 16, so rows stay 16-byte copies), and
+ragged N (the windows' 196 tokens) masked by selects; it tiles every N, so
+the XLA fallback for an N the TPU kernel cannot tile has no counterpart.
 """
 
 from __future__ import annotations
@@ -119,21 +122,38 @@ def fused_attention_plain(q, k, v):
     return torch.matmul(p.to(v.dtype), v)
 
 
+# K5's instances in csrc/relpos_attention.cu, (contraction width, value
+# width): ViT-B / vit_l's windows (D 92) and 16 x 16 grids (96), the 32 x 32
+# (128) and 64 x 64 (192) grids, vit_h's windows (108) and 16 x 16 grid (112)
+FOLDED_INSTANCES = ((96, 64), (128, 64), (192, 64), (112, 80))
+
+
+def folded_instance(D: int, dv: int) -> tuple:
+    """The (DQK, HD) instance that runs K5 at contraction width D and value
+    width dv: the narrowest DQK >= D at HD == dv. Raise ValueError when D is
+    no multiple of 8 (the kernel copies 16-byte rows) or no instance fits."""
+    if D > 0 and D % 8 == 0:
+        for dqk, hd in FOLDED_INSTANCES:
+            if hd == dv and D <= dqk:
+                return dqk, hd
+    raise ValueError(f"fused_attention kernel has instances (D, dv) in {FOLDED_INSTANCES} "
+                     f"(a smaller D that is a multiple of 8 is zero-filled to its instance), "
+                     f"got D={D} dv={dv}")
+
+
 def _flash_forward(q, k, v):
     if _build.on_cpu(q):
         return fused_attention_plain(q, k, v)
     B, H, N, D = q.shape
     dv = v.shape[-1]
-    if D % 2 or dv % 16 or dv > 128:
-        raise ValueError(f"flash attention kernel needs an even D and a value width that is "
-                         f"a multiple of 16 up to 128, got D={D} dv={dv}")
+    folded_instance(D, dv)
     bf = torch.bfloat16
     _build.require(q, "q", bf)
     _build.require(k, "k", bf, q.shape)
     _build.require(v, "v", bf, (B, H, N, dv))
     out = torch.empty((B, H, N, dv), dtype=bf, device=q.device)
     lib = _build.kernels()
-    _build.check(lib.samroad_flash_attention(
+    _build.check(lib.samroad_folded_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, N, D, dv,
         _build.stream_of(q)), "fused_attention")
     _build.launches["fused_attention"] += 1
@@ -167,5 +187,6 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q, k, v):
     """K5. q, k [B, H, N, D] (q scaled, rel-pos folded into D), v [B, H, N,
-    dv]; on CUDA all bf16 and contiguous. Returns [B, H, N, dv] in v.dtype."""
+    dv]; on CUDA all bf16 and contiguous, (D, dv) within folded_instance's
+    set. Returns [B, H, N, dv] in v.dtype."""
     return _FusedAttention.apply(q, k, v)

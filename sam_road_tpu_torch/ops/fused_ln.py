@@ -11,14 +11,20 @@ layout [out, in]; activations are token-major [M, C] as in the JAX package.
 Source note. K1 replaces fused_ln.py::ln_dense (_ln_dense_kernel) and K4
 replaces fused_ln.py::proj_ln_mlp_residual (_proj_ln_mlp_kernel). Both are
 bound on the H100 by tensor-core rate (LN1+qkv is 116 GFLOP per call at the
-bench geometry). The TPU kernels keep their weights resident in VMEM and K4
-keeps x1 and the 4C hidden out of HBM; an SM's 227 KB of shared memory
-cannot hold W1 and W2 (4.7 MB each), so K4 runs as three GEMM launches of
-one kernel template: x1 = x + a.Wp + bp stored in fp32 (the reference keeps
-x1 in fp32 through LN2 and the last residual), mid = GELU(LN2(x1).W1 + b1)
-in bf16 with LN2 as the GEMM's prologue, out = x1 + b2 + mid.W2. GELU uses
-CUDA's exact erff, where the Pallas kernel uses Abramowitz-Stegun
-(|err| <= 1.5e-7).
+bench geometry), so the template is a wgmma GEMM (128 x 256 block tiles,
+64-deep K tiles in a 4-stage 128-byte-swizzled ring, the weights by TMA;
+csrc/gemm.cu's header). An LN prologue reads its rows' statistics, which a
+small kernel computes once per row into an [M] float2 scratch first (two-pass
+fp32, eps 1e-6, as the Pallas kernels). The TPU kernels keep their weights
+resident in VMEM and K4 keeps x1 and the 4C hidden out of HBM; an SM's 227
+KB of shared memory cannot hold W1 and W2 (4.7 MB each), so K4 runs as
+GEMM launches of one kernel template: x1 = x + a.Wp + bp stored in fp32
+(the reference keeps x1 in fp32 through LN2 and the last residual), LN2's
+statistics of x1, mid = GELU(LN2(x1).W1 + b1) in bf16 with LN2 as the
+GEMM's prologue, out = x1 + b2 + mid.W2. GELU uses CUDA's exact erff, where
+the Pallas kernel uses Abramowitz-Stegun (|err| <= 1.5e-7). The shape
+rules are _build.gemm_block_n's: every product's N % 128 == 0 (a 256-wide
+block where N % 256 == 0) and K % 64 == 0.
 
 K7 replaces fused_ln.py::ln_dense_padded and K8 fused_ln.py::
 proj_ln_mlp_residual_grid. Both are modes of the same GEMM template that
@@ -27,12 +33,14 @@ row of the window-padded grid [B, Hp, Wp, F] and a small kernel zeroes the
 pad positions (and no others), so the F.pad pass over the padded qkv
 (about 260 MB of writes at the bench geometry) goes; K8's first launch reads
 the attention output at its padded-grid row, so the crop copy goes. On the
-real tokens each is bit-equal to K1 and K4: the K loop, the accumulation
-order and the epilogues are unchanged. Bound like K1 and K4 by tensor-core
-rate.
+real tokens each is bit-equal to K1 and K4: the instruction sequence, the
+k order of the product and the epilogues depend on the prologue and
+epilogue modes alone, never on the addressing. Bound like K1 and K4 by
+tensor-core rate.
 
 K9 replaces fused_ln.py::ln_mlp_residual (_ln_mlp_kernel). It is K4's last
-two launches with no new arithmetic: mid = GELU(LN(x).W1 + b1) in bf16, then
+launches (statistics, then two GEMMs) with no new arithmetic:
+mid = GELU(LN(x).W1 + b1) in bf16, then
 out = x + b2 + mid.W2 with x (bf16) as the residual where K4 has its fp32
 x1. The TPU kernel keeps the hidden in VMEM; here it makes one bf16 round
 trip through HBM (0.4 GB at M = 32768). Bound by tensor-core rate (309 GFLOP
@@ -56,6 +64,19 @@ import torch.nn.functional as F
 from sam_road_tpu_torch.ops import _build
 
 LN_EPS = 1e-6
+
+
+def _ln_stats(M, device):
+    """Scratch for the kernels' per-row LayerNorm statistics, (mean, rstd)
+    as [M] float2."""
+    return torch.empty((M, 2), dtype=torch.float32, device=device)
+
+
+def _require_mlp_shape(C, Fh, name):
+    """The GEMM's shape rules for K4's, K8's and K9's products: C -> C
+    (or Fh), Fh -> C."""
+    _build.gemm_block_n(C, C, name)
+    _build.gemm_block_n(Fh, Fh, name)
 
 
 def layer_norm_f32(x, scale, bias, dt):
@@ -94,13 +115,13 @@ def ln_dense(x, ln_scale, ln_bias, w, bias=None):
     _build.require(w, "w", bf, (Fo, C))
     if bias is not None:
         _build.require(bias, "bias", bf, (Fo,))
-    if Fo % 128 or C % 32:
-        raise ValueError(f"ln_dense kernel needs F % 128 == 0 and C % 32 == 0, got F={Fo} C={C}")
+    _build.gemm_block_n(Fo, C, "ln_dense")
+    stats = _ln_stats(M, x.device)
     out = torch.empty((M, Fo), dtype=bf, device=x.device)
     lib = _build.kernels()
     _build.check(lib.samroad_ln_dense(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if bias is None else bias.data_ptr(), stats.data_ptr(), out.data_ptr(),
         M, Fo, C, _build.stream_of(x)), "ln_dense")
     _build.launches["ln_dense"] += 1
     return out
@@ -128,13 +149,14 @@ def ln_dense_padded(x, ln_scale, ln_bias, w, pad_hw):
     _build.require(ln_scale, "ln_scale", bf, (C,))
     _build.require(ln_bias, "ln_bias", bf, (C,))
     _build.require(w, "w", bf, (Fo, C))
-    if Fo % 128 or C % 32 or Hp < H or Wp < W:
-        raise ValueError(f"ln_dense_padded kernel needs F % 128 == 0, C % 32 == 0 and "
-                         f"non-negative pads, got F={Fo} C={C} pad={tuple(pad_hw)}")
+    _build.gemm_block_n(Fo, C, "ln_dense_padded")
+    if Hp < H or Wp < W:
+        raise ValueError(f"ln_dense_padded kernel needs non-negative pads, got {tuple(pad_hw)}")
+    stats = _ln_stats(B * H * W, x.device)
     out = torch.empty((B, Hp, Wp, Fo), dtype=bf, device=x.device)
     _build.check(_build.kernels().samroad_ln_dense_padded(
-        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), out.data_ptr(),
-        B, H, W, Hp, Wp, Fo, C, _build.stream_of(x)), "ln_dense_padded")
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(), stats.data_ptr(),
+        out.data_ptr(), B, H, W, Hp, Wp, Fo, C, _build.stream_of(x)), "ln_dense_padded")
     _build.launches["ln_dense_padded"] += 1
     return out
 
@@ -172,16 +194,16 @@ def proj_ln_mlp_residual(x, attn_out, wp, bp, ln_scale, ln_bias, w1, b1, w2,
     _build.require(b1, "b1", bf, (Fh,))
     _build.require(w2, "w2", bf, (C, Fh))
     _build.require(b2, "b2", bf, (C,))
-    if C % 128 or Fh % 128:
-        raise ValueError(f"proj_ln_mlp_residual kernel needs C and hidden % 128 == 0, got {C}, {Fh}")
+    _require_mlp_shape(C, Fh, "proj_ln_mlp_residual")
     x1 = torch.empty((M, C), dtype=torch.float32, device=x.device)
+    stats = _ln_stats(M, x.device)
     mid = torch.empty((M, Fh), dtype=bf, device=x.device)
     out = torch.empty((M, C), dtype=bf, device=x.device)
     lib = _build.kernels()
     _build.check(lib.samroad_proj_ln_mlp_residual(
         x.data_ptr(), attn_out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
         ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), x1.data_ptr(), mid.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), x1.data_ptr(), stats.data_ptr(), mid.data_ptr(),
         out.data_ptr(), M, C, Fh, _build.stream_of(x)), "proj_ln_mlp_residual")
     _build.launches["proj_ln_mlp_residual"] += 1
     return out
@@ -217,18 +239,17 @@ def proj_ln_mlp_residual_grid(x, attn_out_padded, wp, bp, ln_scale, ln_bias, w1,
                            (ln_bias, "ln_bias", (C,)), (w1, "w1", (Fh, C)), (b1, "b1", (Fh,)),
                            (w2, "w2", (C, Fh)), (b2, "b2", (C,))):
         _build.require(t, name, bf, shape)
-    if C % 128 or Fh % 128:
-        raise ValueError(f"proj_ln_mlp_residual_grid kernel needs C and hidden % 128 == 0, "
-                         f"got {C}, {Fh}")
+    _require_mlp_shape(C, Fh, "proj_ln_mlp_residual_grid")
     M = B * H * W
     x1 = torch.empty((M, C), dtype=torch.float32, device=x.device)
+    stats = _ln_stats(M, x.device)
     mid = torch.empty((M, Fh), dtype=bf, device=x.device)
     out = torch.empty((B, H, W, C), dtype=bf, device=x.device)
     _build.check(_build.kernels().samroad_proj_ln_mlp_residual_grid(
         x.data_ptr(), attn_out_padded.data_ptr(), wp.data_ptr(), bp.data_ptr(),
         ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), x1.data_ptr(), mid.data_ptr(), out.data_ptr(), B, H, W, Hp, Wp, C, Fh,
-        _build.stream_of(x)), "proj_ln_mlp_residual_grid")
+        b2.data_ptr(), x1.data_ptr(), stats.data_ptr(), mid.data_ptr(), out.data_ptr(), B, H, W,
+        Hp, Wp, C, Fh, _build.stream_of(x)), "proj_ln_mlp_residual_grid")
     _build.launches["proj_ln_mlp_residual_grid"] += 1
     return out
 
@@ -260,14 +281,14 @@ def ln_mlp_residual(x, ln_scale, ln_bias, w1, b1, w2, b2):
                            (w1, "w1", (Fh, C)), (b1, "b1", (Fh,)), (w2, "w2", (C, Fh)),
                            (b2, "b2", (C,))):
         _build.require(t, name, bf, shape)
-    if C % 128 or Fh % 128:
-        raise ValueError(f"ln_mlp_residual kernel needs C and hidden % 128 == 0, got {C}, {Fh}")
+    _require_mlp_shape(C, Fh, "ln_mlp_residual")
+    stats = _ln_stats(M, x.device)
     mid = torch.empty((M, Fh), dtype=bf, device=x.device)
     out = torch.empty((M, C), dtype=bf, device=x.device)
     _build.check(_build.kernels().samroad_ln_mlp_residual(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), mid.data_ptr(), out.data_ptr(), M, C, Fh,
-        _build.stream_of(x)), "ln_mlp_residual")
+        w2.data_ptr(), b2.data_ptr(), stats.data_ptr(), mid.data_ptr(), out.data_ptr(), M, C,
+        Fh, _build.stream_of(x)), "ln_mlp_residual")
     _build.launches["ln_mlp_residual"] += 1
     return out
 

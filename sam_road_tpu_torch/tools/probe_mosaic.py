@@ -55,7 +55,7 @@ def merge_dense_plain(x, w):
 
 
 def merge_dense(x, w):
-    """T6: x [G, NP, C] . w^T, w [F, C] -> [G, NP, F], bf16; C % 32 == 0
+    """T6: x [G, NP, C] . w^T, w [F, C] -> [G, NP, F], bf16; C % 64 == 0
     and F % 128 == 0, any G NP."""
     if _build.on_cpu(x):
         return merge_dense_plain(x, w)
@@ -63,9 +63,10 @@ def merge_dense(x, w):
     bf = torch.bfloat16
     _build.require(x, "x", bf)
     _build.require(w, "w", bf)
-    if w.shape[1] != C or C % 32 or w.shape[0] % 128:
-        raise ValueError(f"merge_dense kernel needs w [F, {C}] with C % 32 == 0 and "
-                         f"F % 128 == 0, got x {tuple(x.shape)}, w {tuple(w.shape)}")
+    if w.shape[1] != C:
+        raise ValueError(f"merge_dense kernel needs w [F, {C}], got x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    _build.gemm_block_n(w.shape[0], C, "merge_dense")
     out = torch.empty((G, NP, w.shape[0]), dtype=bf, device=x.device)
     _build.check(_build.kernels().samroad_merge_dense(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), G * NP, w.shape[0], C,

@@ -99,28 +99,40 @@ def test_cuda_kernel_matches_plain_at_bench_shapes(cuda, name):
     assert _build.launches[key] == before[key] + 1
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,side", [(36, 14), (4, 32), (1, 64)])
-def test_cuda_fused_attention_forward_and_backward(cuda, B, side):
-    """K5 at the ViT-B window (196 tokens, D 92), 512 px global (1024, D 128)
-    and 1024 px global (4096, D 192) shapes, bf16: the forward and the
-    autograd.Function's gradients within 2e-2 (1 + |ref|) of the plain
-    version under autograd in fp32 on the same inputs."""
-    import torch.nn.functional as F
+def _folded_case(dev, B, side, heads, hd, seed=8):
+    """K5's inputs as the eager encoder builds them: q, k, v [B, heads, side^2,
+    hd] and rel-pos tables through models/vit.py::fold_rel_pos_qk (q~ scaled,
+    D = hd + 2 side padded to a multiple of 16), and a cotangent; bf16."""
+    from sam_road_tpu_torch.models.vit import fold_rel_pos_qk
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device=cuda).manual_seed(8)
-    heads, hd, N = 12, 64, side * side
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=cuda) * scale
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
 
-    idx = torch.arange(N, device=cuda)
-    pos = torch.cat([F.one_hot(idx // side, side), F.one_hot(idx % side, side)], 1).float()
-    q = torch.cat([rn(B, heads, N, hd, scale=hd ** -0.5), rn(B, heads, N, 2 * side, scale=0.3)],
-                  -1).to(torch.bfloat16)
-    k = torch.cat([rn(B, heads, N, hd), pos.expand(B, heads, N, 2 * side)], -1).to(torch.bfloat16)
-    v, g = (rn(B, heads, N, hd).to(torch.bfloat16) for _ in range(2))
+    N = side * side
+    q, k, v, g = (rn(B, heads, N, hd) for _ in range(4))
+    Rh, Rw = (rn(side, side, hd, scale=0.3 * hd ** -0.5) for _ in range(2))
+    q_aug, k_aug = fold_rel_pos_qk(q, k, Rh, Rw, (side, side), hd ** -0.5)
+    return q_aug.contiguous(), k_aug.contiguous(), v, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,side,heads,hd", [
+    (36, 14, 12, 64),  # ViT-B window: 196 tokens, D 92 -> instance 96
+    (4, 16, 12, 64),   # 256 px global (ViT-B, vit_l): D 96
+    (4, 32, 12, 64),   # 512 px global: D 128
+    (1, 64, 12, 64),   # 1024 px global: D 192
+    (16, 14, 16, 80),  # vit_h window: D 108 -> instance 112
+    (4, 16, 16, 80),   # vit_h 256 px global: D 112
+])
+def test_cuda_fused_attention_forward_and_backward(cuda, B, side, heads, hd):
+    """K5 at every instance (DQK, HD) of csrc/relpos_attention.cu's
+    MODE_FOLDED, on inputs folded as the encoder folds them, bf16: the
+    forward and the autograd.Function's gradients within 2e-2 (1 + |ref|)
+    of the plain version under autograd in fp32 on the same inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _folded_case(cuda, B, side, heads, hd)
     before = _build.launches["fused_attention"]
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     got = attention.fused_attention(*leaves)
@@ -133,6 +145,21 @@ def test_cuda_fused_attention_forward_and_backward(cuda, B, side):
     for a, b in [(got, ref)] + [(x.grad, y.grad) for x, y in zip(leaves, refs)]:
         assert torch.isfinite(a.float()).all()
         assert ((a.float() - b).abs() / (1 + b.abs())).max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_fused_attention_refuses_rows_it_cannot_copy(cuda):
+    """K5 on an unpadded 92-wide fold (184-byte rows) or a width no instance
+    takes raises ValueError naming the instances, and launches nothing."""
+    q = torch.zeros((1, 1, 196, 92), dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros((1, 1, 196, 64), dtype=torch.bfloat16, device=cuda)
+    before = _build.launches["fused_attention"]
+    with pytest.raises(ValueError, match="instances"):
+        attention.fused_attention(q, q, v)
+    wide = torch.zeros((1, 1, 196, 208), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="instances"):
+        attention.fused_attention(wide, wide, v)
+    assert _build.launches["fused_attention"] == before
 
 
 def _k6_case(name, dev):
@@ -503,6 +530,99 @@ def test_cuda_inker_attention_matches_plain(cuda, BH, side, hd):
     assert _build.launches["inker_attention"] == before + 1
     assert _within_tol(got, experiment_block_variants.inker_attention_plain(
         *[a.float() for a in (q, k, v, rh, rw)], side, side))
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_swizzled_unit_product_is_exact(cuda):
+    """One block, one K tile of csrc/gemm.cu: x [128, 64] . w^T, w [N, 64]
+    (N 128: one m64n128 product a warpgroup; N 256: m64n256), through the
+    128-byte-swizzled A and B stages, both written by TMA (flat A_BF16
+    rows). Small integers make
+    every product and sum exact in fp32, so a wrong swizzle, descriptor or
+    accumulator layout shows as an unequal element; then a staircase x
+    picks single rows of w, which localises one."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    for n in (128, 256):
+        x = torch.randint(-2, 3, (1, 128, 64), generator=gen, device=cuda).to(torch.bfloat16)
+        w = torch.randint(-2, 3, (n, 64), generator=gen, device=cuda).to(torch.bfloat16)
+        got = probe_mosaic.merge_dense(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got.float(), probe_mosaic.merge_dense_plain(x.float(), w.float()))
+        rows, cols = torch.arange(128, device=cuda), torch.arange(128, device=cuda) % 64
+        stair = torch.zeros((1, 128, 64), dtype=torch.bfloat16, device=cuda)
+        stair[0, rows, cols] = 1  # row i of the product is column i % 64 of w
+        got = probe_mosaic.merge_dense(stair, w)
+        assert torch.equal(got[0], w[:, cols].t())
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_grid_staircase_is_exact(cuda):
+    """K8's proj launch, whose A rows come through map_row from the padded
+    grid and reach the swizzled A stage by the producer's register stores:
+    a staircase attn_out (token m has a single 1 in column m % C, the pad
+    cells 7) against integer wp, with x, bp, w1, b1, b2 zero and LN2 the
+    identity, so out is exactly column m % C of wp. A wrong row map or a
+    wrong register-store swizzle shows as an unequal element. C 256: four
+    K tiles and the 256-wide block tile; 144 tokens: a ragged row tile."""
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    bf = torch.bfloat16
+    B, H, W, Hp, Wp, C = 1, 12, 12, 14, 14, 256
+    M, Fh = B * H * W, 4 * C
+    cols = torch.arange(M, device=cuda) % C
+    a = torch.full((B, Hp, Wp, C), 7.0, dtype=bf, device=cuda)
+    a[:, :H, :W] = torch.nn.functional.one_hot(cols, C).to(bf).reshape(B, H, W, C)
+    wp = torch.randint(-2, 3, (C, C), generator=gen, device=cuda).to(bf)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=bf, device=cuda)
+
+    before = _build.launches["proj_ln_mlp_residual_grid"]
+    got = fused_ln.proj_ln_mlp_residual_grid(
+        zeros(B, H, W, C), a, wp, zeros(C), torch.ones(C, dtype=bf, device=cuda), zeros(C),
+        zeros(Fh, C), zeros(Fh), zeros(C, Fh), zeros(C))
+    torch.cuda.synchronize()
+    assert _build.launches["proj_ln_mlp_residual_grid"] == before + 1
+    assert torch.equal(got.reshape(M, C), wp[:, cols].t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,M,C,F", [
+    ("ln_dense", 1000, 768, 384),            # N % 256 != 0: the 128-wide tile; ragged M
+    ("ln_dense_bias", 16384, 1280, 3840),    # vit_h's qkv (B 64 at 256 px)
+    ("proj_ln_mlp_residual", 2000, 1280, 5120),  # vit_h's tail, ragged M
+    ("proj_ln_mlp_residual", 4096, 1024, 4096),  # vit_l's tail
+    ("ln_mlp_residual", 700, 256, 640),      # hidden % 256 != 0 and ragged M
+])
+def test_cuda_gemm_modes_match_plain_at_other_widths(cuda, name, M, C, F):
+    """The GEMM template's modes off the bench widths: each within 2e-2
+    (1 + |plain|) of its plain version in fp32 on the same bf16 inputs;
+    one launch each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(32)
+
+    def rn(*shape, scale=1.0):
+        return _rn(gen, cuda, *shape, scale=scale)
+
+    ln = (1 + rn(C, scale=0.1), rn(C, scale=0.1))
+    if name.startswith("ln_dense"):
+        kern, plain, key = fused_ln.ln_dense, fused_ln.ln_dense_plain, "ln_dense"
+        args = (rn(M, C),) + ln + (rn(F, C, scale=C ** -0.5),
+                                   rn(F, scale=0.1) if name == "ln_dense_bias" else None)
+    elif name == "proj_ln_mlp_residual":
+        kern, plain, key = (fused_ln.proj_ln_mlp_residual, fused_ln.proj_ln_mlp_residual_plain,
+                            name)
+        args = (rn(M, C), rn(M, C), rn(C, C, scale=C ** -0.5), rn(C, scale=0.1)) + ln + (
+            rn(F, C, scale=C ** -0.5), rn(F, scale=0.1), rn(C, F, scale=F ** -0.5),
+            rn(C, scale=0.1))
+    else:
+        kern, plain, key = fused_ln.ln_mlp_residual, fused_ln.ln_mlp_residual_plain, name
+        args = (rn(M, C),) + ln + (rn(F, C, scale=C ** -0.5), rn(F, scale=0.1),
+                                   rn(C, F, scale=F ** -0.5), rn(C, scale=0.1))
+    before = _build.launches[key]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert _build.launches[key] == before + 1
+    assert _within_tol(got, plain(*[a.float() if a is not None else None for a in args]))
 
 
 @pytest.mark.cuda

@@ -111,6 +111,8 @@ def test_attention_relpos_rows_plain_matches_pallas():
     (1, 2, 196, 60, 32),   # a vit_t window: 14 x 14 tokens, head_dim 32 + 14 + 14
     (1, 2, 1024, 128, 64),  # the ViT-B 512 px global grid
     (1, 1, 4096, 192, 64),  # the 1024 px config's global grid (the blocked kernel)
+    (1, 2, 196, 92, 64),   # a ViT-B window: ragged N, D 92 (instance 96)
+    (1, 2, 256, 112, 80),  # vit_h's 256 px global grid: D 112, dv 80
 ])
 def test_fused_attention_matches_pallas_forward_and_vjp(B, H, N, D, dv):
     """K5 on CPU (plain forward, recompute backward) against the JAX
@@ -129,6 +131,77 @@ def test_fused_attention_matches_pallas_forward_and_vjp(B, H, N, D, dv):
     for leaf, grad in zip(leaves, vjp(jnp.asarray(g))):
         _close(leaf.grad, grad)
     assert not _build.launches  # no kernel launched on CPU tensors
+
+
+@pytest.mark.parametrize("hd,H,W", [
+    (32, 14, 14),  # a vit_t window: D 60, padded to 64
+    (32, 8, 8),    # a vit_t global grid: D 48, no padding
+    (16, 7, 7),    # D 30, padded to 32
+])
+def test_padded_fold_attends_as_the_jax_unpadded_fold(hd, H, W):
+    """models/vit.py::fold_rel_pos_qk pads q~ and k~ with zero columns to a
+    multiple of 16 (K5's kernel copies 16-byte rows); the attention over the
+    padded fold equals the JAX fused_attention (interpret mode) over the JAX
+    package's unpadded fold, forward and VJP into q and k, in fp32."""
+    import jax
+
+    from sam_road_tpu.models import vit as jvit
+    from sam_road_tpu_torch.models import vit
+
+    r = _rng(hd + H)
+    N, scale = H * W, hd ** -0.5
+    q, k, v, g = (r.normal(size=(1, 2, N, hd)).astype(np.float32) for _ in range(4))
+    Rh = (0.3 * r.normal(size=(H, H, hd))).astype(np.float32)
+    Rw = (0.3 * r.normal(size=(W, W, hd))).astype(np.float32)
+
+    def jax_attn(q, k, v):
+        qa, ka = jvit.fold_rel_pos_qk(q, k, jnp.asarray(Rh), jnp.asarray(Rw), (H, W), scale)
+        return jattn.fused_attention(qa, ka, v, True)
+
+    want, vjp = jax.vjp(jax_attn, *map(jnp.asarray, (q, k, v)))
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    qa, ka = vit.fold_rel_pos_qk(leaves[0], leaves[1], torch.from_numpy(Rh),
+                                 torch.from_numpy(Rw), (H, W), scale)
+    D = hd + H + W
+    assert qa.shape[-1] == ka.shape[-1] == -(-D // 16) * 16
+    assert not qa[..., D:].any() and not ka[..., D:].any()
+    got = attention.fused_attention(qa, ka, leaves[2])
+    got.backward(torch.from_numpy(g))
+    _close(got, want)
+    for leaf, grad in zip(leaves, vjp(jnp.asarray(g))):
+        _close(leaf.grad, grad)
+
+
+@pytest.mark.parametrize("D,dv,want", [
+    (92, 64, None), (96, 64, (96, 64)), (104, 64, (128, 64)), (128, 64, (128, 64)),
+    (136, 64, (192, 64)), (192, 64, (192, 64)), (108, 80, None), (112, 80, (112, 80)),
+    (104, 80, (112, 80)), (200, 64, None), (120, 80, None), (96, 32, None), (96, 128, None),
+])
+def test_folded_instance_choice(D, dv, want):
+    """K5's instance (DQK, HD) for a contraction width D and value width dv:
+    the narrowest DQK >= D at HD == dv, D a multiple of 8 (16-byte rows:
+    the unpadded folds' 92 and 108 are not, fold_rel_pos_qk's 96 and 112
+    are); any other (D, dv) raises ValueError naming the instances."""
+    if want is None:
+        with pytest.raises(ValueError, match="instances"):
+            attention.folded_instance(D, dv)
+    else:
+        assert attention.folded_instance(D, dv) == want
+
+
+@pytest.mark.parametrize("N,K,want", [
+    (2304, 768, 256), (768, 3072, 256), (3840, 1280, 256), (256, 256, 256),
+    (384, 768, 128), (640, 256, 128), (192, 64, None), (256, 96, None), (100, 64, None),
+])
+def test_gemm_block_n_shape_rules(N, K, want):
+    """csrc/gemm.cu's shape rules as the wrappers apply them: a 256-wide
+    block where N % 256 == 0, else 128 when N % 128 == 0; K a multiple of
+    the 64-deep K tile; anything else raises ValueError."""
+    if want is None:
+        with pytest.raises(ValueError, match="N % 128 == 0 and K % 64 == 0"):
+            _build.gemm_block_n(N, K, "ln_dense")
+    else:
+        assert _build.gemm_block_n(N, K, "ln_dense") == want
 
 
 def test_wrappers_take_plain_version_on_cpu_and_refuse_other_devices():
