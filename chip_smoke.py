@@ -16,7 +16,10 @@ encoder and a region through it, then checks the tools' own kernels T1-T4
 and runs their three tools, then checks T5-T8 and runs the block-variant
 and Mosaic-probe tools, then checks T9-T13 and runs the non-dividing block
 probes and the batched-product repro, showing that each path ran through
-its kernels.
+its kernels. Before phase 11, phase 16 scores the inference CLI's graphs
+with the evaluation CLI (APLS and TOPO, host code: no kernel) against a
+generated street-grid ground truth, with self-checks on the ground truth
+itself, a degraded copy, and the native scorers against the Python ones.
 Every
 kernel's time sits beside its bound (bytes or operations at the card's
 peak rates) and, where one PyTorch call computes the same function, that
@@ -121,6 +124,17 @@ INFER_MODES = {
         "ln_dense": 12, "window_attention_rows_grid_rolled": 8, "attention_relpos_rows": 4,
         "proj_ln_mlp_residual": 12}),
 }
+# phase 16: cli.evaluate over phase 10's graphs. Each INFER tile's ground
+# truth is a street grid (first row / column, last, spacing in px): over the
+# whole first tile at an arterial spacing (256 px, 256 m at Cityscale's
+# 1 m/px; against a 128 px grid the native APLS of phase 10's graph takes
+# more than twice as long, 80-95 s a tile), and
+# tests/test_metrics.py::grid_adj's coarse grid on the second, where the
+# Python APLS runs (seconds there, minutes on a full-tile grid). The
+# degraded copy drops the EVAL_DROPS edges nearest the region's centre.
+EVAL_GRIDS = ((32, 2032, 256), (300, 1200, 300))
+EVAL_DROPS = 3
+EVAL_APLS_MIN, EVAL_TOPO_MIN = 0.97, 0.98  # ground truth against itself (tests/test_metrics.py)
 K6_PER_FORWARD = {"ln_dense_d": 8, "ln_dense_bias_d": 4, "proj_ln_mlp_residual_d": 12,
                   "window_attention_rows_grid_d": 8, "attention_relpos_rows_d": 4,
                   "ln_dense": 12, "window_attention_rows_grid": 8, "attention_relpos_rows": 4,
@@ -980,6 +994,18 @@ def check_train_encoder(seed: int, dev: str = "cuda"):
     return dict(cosine=cos, grad_cosine=gcos, lowest=(low, per[low]))
 
 
+def street_grid(lines) -> dict:
+    """An axis-aligned street grid whose rows and columns lie at `lines`
+    (px), as a sat2graph dict: (r, c) keys, each with its 4-neighbours."""
+    adj = {}
+    for i, y in enumerate(lines):
+        for j, x in enumerate(lines):
+            adj[(y, x)] = [(lines[i + di], lines[j + dj])
+                           for di, dj in ((-1, 0), (1, 0), (0, -1), (0, 1))
+                           if 0 <= i + di < len(lines) and 0 <= j + dj < len(lines)]
+    return adj
+
+
 def write_cityscale_fixture(root: str, size: int, spacing: int = 64, seed: int = 0):
     """The 8 Cityscale-format tiles the training CLI's --dev_run reads (the
     first 4 train and 4 test indices of cityscale_data_partition), size px
@@ -997,12 +1023,7 @@ def write_cityscale_fixture(root: str, size: int, spacing: int = 64, seed: int =
     rng = np.random.default_rng(seed)
     for n, tile in enumerate(train[:4] + test[:4]):
         lines = list(range(32 + 8 * (n % 4), size - 16, spacing))
-        adj = {}
-        for i, y in enumerate(lines):
-            for j, x in enumerate(lines):
-                adj[(y, x)] = [(lines[i + di], lines[j + dj])
-                               for di, dj in ((-1, 0), (1, 0), (0, -1), (0, 1))
-                               if 0 <= i + di < len(lines) and 0 <= j + dj < len(lines)]
+        adj = street_grid(lines)
         with open(os.path.join(sat, f"region_{tile}_refine_gt_graph.p"), "wb") as f:
             pickle.dump(adj, f)
         lo, hi = lines[0], lines[-1]
@@ -1456,6 +1477,141 @@ def run_test_cli(work: str, dev: str = "cuda"):
             np.isfinite(v["threshold"]) for v in results.values()):
         raise SystemExit(f"cli.test: thresholds missing or not finite: {results}")
     return results
+
+
+def drop_central_edges(adj: dict, n: int, size: int = REGION) -> dict:
+    """`adj` without its n undirected edges whose midpoints lie nearest the
+    centre of a size px region."""
+    edges = sorted({tuple(sorted((a, b))) for a, v in adj.items() for b in v},
+                   key=lambda e: (abs(e[0][0] + e[1][0] - size) + abs(e[0][1] + e[1][1] - size), e))
+    drop = set(edges[:n])
+    return {a: [b for b in v if tuple(sorted((a, b))) not in drop] for a, v in adj.items()}
+
+
+def evaluate_cli(run_dirs, data: str, tiles, *flags) -> str:
+    """One `python -m sam_road_tpu_torch.cli.evaluate` subprocess (the
+    runner starts worker processes, which must not come from a process
+    holding a CUDA context); returns its standard output."""
+    cmd = [sys.executable, "-m", "sam_road_tpu_torch.cli.evaluate", "--run_dir", *run_dirs,
+           "--data_root", data, "--tiles", ",".join(str(t) for t in tiles), *flags]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise SystemExit(f"cli.evaluate exit {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                         f"{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def tile_seconds(out: str) -> dict:
+    """The runner's per-tile seconds in a cli.evaluate output: (run dir,
+    "APLS" or "TOPO") -> {tile: s}."""
+    seconds, run = {}, None
+    for line in out.splitlines():
+        if line.startswith("==== evaluating "):
+            run = line.split()[2]
+        elif line.startswith(("APLS ", "TOPO ")) and line.endswith(" s)"):
+            metric, tile = line.split(":")[0].split()
+            seconds.setdefault((run, metric), {})[tile] = float(line.rsplit("(", 1)[1].split()[0])
+    return seconds
+
+
+def read_scores(run: str, tiles) -> dict:
+    """score/{apls,topo}.json of a run dir that held every tile's graph:
+    tile -> dict(apls, p, r, f1)."""
+    with open(os.path.join(run, "score", "apls.json")) as f:
+        apls = json.load(f)["apls"]
+    with open(os.path.join(run, "score", "topo.json")) as f:
+        topo = json.load(f)
+    return {t: dict(apls=a, p=p, r=r, f1=f1) for t, a, p, r, f1 in
+            zip(tiles, apls, topo["prec"], topo["recall"], topo["f1"], strict=True)}
+
+
+def run_evaluate_cli(work: str) -> dict:
+    """Phase 16: the evaluation CLI (`python -m sam_road_tpu_torch.cli.evaluate`,
+    native APLS and TOPO) over phase 10's cli.infer graphs (save/default)
+    and two run dirs of its own, against a street-grid ground truth written
+    for each tile (EVAL_GRIDS):
+    - truth: the ground truth as the graph scores APLS > EVAL_APLS_MIN and
+      TOPO P, R and F1 > EVAL_TOPO_MIN on every tile;
+    - degraded: the ground truth less EVAL_DROPS central edges scores lower
+      on APLS and on TOPO F1, on every tile;
+    - on the coarse grid's degraded graph, the CLI's --no_native APLS is
+      within 1e-6 of the native (which prints 6 decimals), and the Python
+      TOPO (metrics._native.USE_NATIVE off, in process) equals the CLI's
+      native TOPO exactly.
+    The random-weight graphs score low: their scores are printed, checked
+    only to lie in [0, 1]. Returns the seconds per tile of each scorer."""
+    from sam_road_tpu_torch.data.partitions import cityscale_data_partition
+    from sam_road_tpu_torch.metrics import _native, topo
+
+    t0 = time.time()
+    tiles = cityscale_data_partition()[2][:INFER_TILES]
+    data = os.path.join(work, "infer_data")
+    gt = {}
+    for tile, (lo, hi, spacing) in zip(tiles, EVAL_GRIDS, strict=True):
+        gt[tile] = street_grid(list(range(lo, hi + 1, spacing)))
+        with open(os.path.join(data, "cityscale", "20cities",
+                               f"region_{tile}_graph_gt.pickle"), "wb") as f:
+            pickle.dump(gt[tile], f)
+    degraded = {t: drop_central_edges(g, EVAL_DROPS) for t, g in gt.items()}
+    runs = {"infer": os.path.join(work, "save", "default")}
+    for name, graphs in (("truth", gt), ("degraded", degraded),
+                         ("python", {tiles[-1]: degraded[tiles[-1]]})):
+        runs[name] = os.path.join(work, "eval", name)
+        os.makedirs(os.path.join(runs[name], "graph"))
+        for tile, adj in graphs.items():
+            with open(os.path.join(runs[name], "graph", f"{tile}.p"), "wb") as f:
+                pickle.dump(adj, f)
+    t = time.time()
+    out = evaluate_cli([runs["infer"], runs["truth"], runs["degraded"]], data, tiles)
+    cli_s = time.time() - t
+    per_tile = tile_seconds(out)
+    seconds = {f"{name} {metric} native": per_tile.get((runs[name], metric))
+               for name in ("infer", "truth", "degraded") for metric in ("APLS", "TOPO")}
+    scores = {name: read_scores(runs[name], tiles) for name in ("infer", "truth", "degraded")}
+    for name, by_tile in scores.items():
+        for tile, s in by_tile.items():
+            print(f"cli.evaluate {name} tile {tile}: APLS {s['apls']} TOPO P {s['p']} "
+                  f"R {s['r']} F1 {s['f1']}", flush=True)
+    t = time.time()
+    out = evaluate_cli([runs["python"]], data, tiles[-1:], "--metric", "apls", "--no_native")
+    python_cli_s = time.time() - t
+    seconds["degraded APLS python"] = tile_seconds(out).get((runs["python"], "APLS"))
+    with open(os.path.join(runs["python"], "score", "apls.json")) as f:
+        python_apls = json.load(f)["apls"][0]
+    _native.USE_NATIVE = False
+    try:
+        t = time.time()
+        p, r, f1 = topo.topo_score_one_tile(gt[tiles[-1]], degraded[tiles[-1]])
+        seconds["degraded TOPO python"] = {str(tiles[-1]): round(time.time() - t, 3)}
+    finally:
+        _native.USE_NATIVE = True
+    native = scores["degraded"][tiles[-1]]
+    bad = [f"{name} tile {tile}: {s}" for name in ("infer", "truth", "degraded")
+           for tile, s in scores[name].items()
+           if not all(0.0 <= v <= 1.0 for v in s.values())]
+    for tile in tiles:
+        truth, worse = scores["truth"][tile], scores["degraded"][tile]
+        if truth["apls"] <= EVAL_APLS_MIN or min(truth["p"], truth["r"], truth["f1"]) <= EVAL_TOPO_MIN:
+            bad.append(f"truth tile {tile}: {truth}")
+        if not (worse["apls"] < truth["apls"] and worse["f1"] < truth["f1"]):
+            bad.append(f"degraded tile {tile} {worse} not below truth {truth}")
+    if abs(python_apls - native["apls"]) >= 1e-6:
+        bad.append(f"--no_native APLS {python_apls} vs native {native['apls']}")
+    if (p, r, f1) != (native["p"], native["r"], native["f1"]):
+        bad.append(f"Python TOPO {(p, r, f1)} vs native {native}")
+    print(f"cli.evaluate: tile {tiles[-1]} degraded: --no_native APLS {python_apls} vs native "
+          f"{native['apls']}; Python TOPO {(p, r, f1)} vs native "
+          f"{(native['p'], native['r'], native['f1'])}", flush=True)
+    print(f"cli.evaluate seconds per tile (the runner's workers, two tiles at once): "
+          f"{json.dumps(seconds)}; the CLI over three run dirs {cli_s:.1f} s, --no_native "
+          f"{python_cli_s:.1f} s; phase {time.time() - t0:.1f} s | {gpu_line()}", flush=True)
+    want = {str(t) for t in tiles}
+    if any(v is None or set(v) != want for k, v in seconds.items() if "native" in k):
+        bad.append(f"a per-tile line missing from the CLI's output: {seconds}")
+    if bad:
+        raise SystemExit("cli.evaluate: " + "; ".join(bad))
+    return seconds
 
 
 def check_tool_kernels(dev: str = "cuda", tokens: int = 32 * 1024, dim: int = 768,
@@ -2050,6 +2206,8 @@ def main():
     phase("2 build")
     from sam_road_tpu_torch.graph.nms import _lib as nms_lib
     from sam_road_tpu_torch.inference.pairs import _lib as pairs_lib
+    from sam_road_tpu_torch.metrics._native import load_topo_native
+    from sam_road_tpu_torch.metrics.apls_native import ensure_apls_binary
     from sam_road_tpu_torch.ops import _build
 
     t = time.time()
@@ -2057,8 +2215,8 @@ def main():
     print(f"built CUDA kernels in {time.time() - t:.1f} s", flush=True)
     print_ptxas(lib._name + ".log", ("gemm_kernel", "ln_stats_kernel", "relpos_attention_kernel"))
     t = time.time()
-    nms_lib(), pairs_lib()
-    print(f"built host native libs in {time.time() - t:.1f} s", flush=True)
+    nms_lib(), pairs_lib(), load_topo_native(), ensure_apls_binary()
+    print(f"built host native libs and the APLS scorer in {time.time() - t:.1f} s", flush=True)
 
     phase("3 kernels vs plain at the bench shapes (B=32)")
     results = check_kernels(32)
@@ -2095,6 +2253,9 @@ def main():
         check_encoder_modes(SEED)
         infer_runs = run_infer_cli(SEED, work)
         run_test_cli(work)
+
+        phase("16 the evaluation CLI over cli.infer's graphs")
+        run_evaluate_cli(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     grid_launches = {**infer_runs["pad_free"]["launches"],

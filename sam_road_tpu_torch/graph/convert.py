@@ -1,7 +1,6 @@
-"""Graph format converters (counterpart of sam_road_tpu/graph/convert.py:
-all but convert_from_nx, which waits for the metrics): the sat2graph format
-is a dict {(r, c): [(r, c) neighbour, ...]}, as in the GT pickles and the
-inference CLI's graph/{id}.p."""
+"""Graph format converters (counterpart of sam_road_tpu/graph/convert.py):
+the sat2graph format is a dict {(r, c): [(r, c) neighbour, ...]}, as in the
+GT pickles and the inference CLI's graph/{id}.p that the metrics read."""
 
 from __future__ import annotations
 
@@ -56,3 +55,32 @@ def convert_to_sat2graph_format(nodes, edges) -> dict:
     int_nodes = [(round(float(x)), round(float(y))) for x, y in nodes]
     return {int_nodes[i]: [int_nodes[j] for j in neighbours]
             for i, neighbours in enumerate(adj_table)}
+
+
+def convert_from_nx(graph):
+    """networkx-like graph with (x, y) nodes -> ((r, c) nodes, edges)
+    (reference: graph_utils.py:437-453). Takes any object with .nodes() and
+    .edges() iterables, so it needs no networkx."""
+    node_to_idx = {}
+    nodes = []
+    for node in graph.nodes():
+        if node not in node_to_idx:
+            node_to_idx[node] = len(node_to_idx)
+        x, y = node
+        nodes.append((y, x))  # to (row, col)
+    edges = [(node_to_idx[a], node_to_idx[b]) for a, b in graph.edges()]
+    return np.array(nodes), np.array(edges)
+
+
+def inspect_graph(node_array, edge_array):
+    """Debug statistics: one-way edge count + near-duplicate node count
+    (reference: graph_utils.py:18-37)."""
+    node_array = np.asarray(node_array)
+    edge_set = {(int(e[0]), int(e[1])) for e in np.asarray(edge_array).reshape(-1, 2)}
+    one_way_edge_count = sum(1 for s, d in edge_set if (d, s) not in edge_set)
+    print(f"DEBUG: One-way-edge count {one_way_edge_count}")
+    diff = node_array[:, None, :] - node_array[None, :, :]
+    dist = np.sqrt((diff**2).sum(-1))
+    dup = (np.sum(dist < 0.1) - node_array.shape[0]) / 2
+    print(f"DEBUG: duplicate_node_count: {dup}")
+    return one_way_edge_count, dup
