@@ -19,11 +19,16 @@ probes and the batched-product repro, showing that each path ran through
 its kernels. Before phase 11, phase 16 scores the inference CLI's graphs
 with the evaluation CLI (APLS and TOPO, host code: no kernel) against a
 generated street-grid ground truth, with self-checks on the ground truth
-itself, a degraded copy, and the native scorers against the Python ones.
-Every
-kernel's time sits beside its bound (bytes or operations at the card's
-peak rates) and, where one PyTorch call computes the same function, that
-call's time.
+itself, a degraded copy, and the native scorers against the Python ones;
+phase 17 runs configs/lora_enc_r4_dec_512.yaml (LoRA rank 4, SAM's mask
+decoder, the eager encoder through K5) at full width: K5 at its shapes,
+the model against its fp32 plain version, a region, training steps, and
+the training, calibration and inference CLIs from a SAM-format checkpoint
+with the decoder's keys; phase 18 runs a region through
+configs/toponet_vitl_256.yaml and configs/toponet_vitb_1024.yaml (K1-K4),
+which never ran on the card before. Every kernel's time sits beside its
+bound (bytes or operations at the card's peak rates) and, where one
+PyTorch call computes the same function, that call's time.
 
     python3 chip_smoke.py
 
@@ -62,6 +67,30 @@ TRAIN = dict(  # configs/toponet_vitb_512_cityscale.yaml's training geometry
     FLASH_ATTENTION=True, FUSED_ENCODER_TRAIN=False,
 )
 TRAIN_STEPS = 4
+TRAIN_WATCH = ("image_encoder.blocks.0.attn.qkv.weight", "map_decoder.0.weight",
+               "topo_net.output_proj.weight")
+# phase 17: configs/lora_enc_r4_dec_512.yaml as it stands (ViT-B 512 px,
+# LoRA rank 4, the SAM decoder, INFER_BATCH_SIZE 64, bf16, FUSED_ENCODER off:
+# the eager encoder through K5); the parameters its training must move
+LORA_CONFIG = "configs/lora_enc_r4_dec_512.yaml"
+LORA_WATCH = ("image_encoder.blocks.0.attn.qkv.linear_a_q.weight",
+              "image_encoder.blocks.1.attn.qkv.linear_b_v.weight",
+              "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
+              "mask_decoder.transformer.layers.0.self_attn.q_proj.weight",
+              "mask_decoder.output_upscaling.0.weight", "topo_net.output_proj.weight")
+LORA_CLI_WATCH = ("image_encoder.blocks.1.attn.qkv.linear_b_q.weight",
+                  "mask_decoder.output_hypernetworks_mlps.1.layers.0.weight")
+LORA_CLI_STEPS = 4
+LORA_FLASH_CASES = (("LoRA region window 14x14", 64 * 9, 14, 12, 64),  # K5 at batch 64
+                    ("LoRA region global 32x32", 64, 32, 12, 64))
+# phase 18: one region through each config as it stands, with its launches
+# per batch (FUSED_ENCODER: K1-K4; vit_l 24 blocks, 4 global)
+REGION_CONFIGS = {
+    "configs/toponet_vitl_256.yaml": {"ln_dense": 24, "window_attention_rows_grid": 20,
+                                      "attention_relpos_rows": 4, "proj_ln_mlp_residual": 24},
+    "configs/toponet_vitb_1024.yaml": {"ln_dense": 12, "window_attention_rows_grid": 8,
+                                       "attention_relpos_rows": 4, "proj_ln_mlp_residual": 12},
+}
 EAGER_REGION = 1024  # phase 8: BENCH with FUSED_ENCODER off
 KERNEL_META = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
     "ln_dense": ("sam_road_tpu_torch/csrc/gemm.cu", "sam_road_tpu/ops/fused_ln.py:61"),
@@ -640,16 +669,16 @@ def flash_cases(dev: str = "cuda", cases=FLASH_CASES):
         yield name, q, k, v, g
 
 
-def check_flash_attention(dev: str = "cuda"):
-    """Phase 6: K5 against its plain version at the main path's shapes:
-    the forward, and the autograd.Function's gradients against autograd
-    through the plain version in fp32 on the same bf16 inputs."""
+def check_flash_attention(dev: str = "cuda", cases=FLASH_CASES):
+    """Phases 6 and 17: K5 against its plain version at a path's shapes
+    (`cases`): the forward, and the autograd.Function's gradients against
+    autograd through the plain version in fp32 on the same bf16 inputs."""
     import torch
 
     from sam_road_tpu_torch.ops import attention
 
     shapes = {}
-    for name, q, k, v, g in flash_cases(dev):
+    for name, q, k, v, g in flash_cases(dev, cases):
         got = attention.fused_attention(q, k, v)
         torch.cuda.synchronize()
         ref = attention.fused_attention_plain(q.float(), k.float(), v.float())
@@ -715,10 +744,11 @@ def check_encoder(seed: int, dev: str = "cuda"):
 
 
 def run_engine(seed: int, overrides: dict, region: int, per_batch: dict, dev: str = "cuda",
-               model=None):
-    """Phases 5, 8 and 12: a region through the engine (`model`, or seeded
-    random weights); returns the launches of the timed run, which must be
-    `per_batch` launches of each kernel per batch."""
+               model=None, repeats: int = 2):
+    """Phases 5, 8, 12, 17 and 18: a region through the engine (`model`, or
+    seeded random weights); returns the launches of the timed run, which
+    must be `per_batch` launches of each kernel per batch, and prints its
+    peak memory. `repeats` more runs print their timings."""
     from sam_road_tpu_torch.config import load_config
     from sam_road_tpu_torch.data.partitions import get_patch_info_one_img
     from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
@@ -741,13 +771,20 @@ def run_engine(seed: int, overrides: dict, region: int, per_batch: dict, dev: st
     print(f"engine warm run {time.time() - t:.3f} s {engine.last_timings}", flush=True)
     engine.config.ITSC_THRESHOLD = float(np.quantile(kp / 255.0, 0.99))
     engine.config.ROAD_THRESHOLD = float(np.quantile(road / 255.0, 0.92))
+    import torch
+
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     nodes, edges, kp, road = engine.infer_one_img(img)
     launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     print(f"engine timed run: nodes {nodes.shape[0]} edges {edges.shape[0]} "
-          f"masks {kp.shape} {road.shape} timings {engine.last_timings}", flush=True)
+          f"masks {kp.shape} {road.shape} timings {engine.last_timings}; peak memory "
+          f"allocated {peak / 2 ** 30:.3f} GiB", flush=True)
     print(f"engine launches {launches}", flush=True)
-    for _ in range(2):
+    for _ in range(repeats):
         engine.infer_one_img(img)
         print(f"engine repeat run timings {engine.last_timings}", flush=True)
     p, m = cfg.PATCH_SIZE, cfg.SAMPLE_MARGIN
@@ -761,8 +798,6 @@ def run_engine(seed: int, overrides: dict, region: int, per_batch: dict, dev: st
     if kp.shape != (region, region) or kp.max() == kp.min() or road.max() == road.min():
         raise SystemExit("engine masks are constant or misshapen")
     # the uint8 masks cannot show a NaN: check the float scores of one patch
-    import torch
-
     crop = torch.from_numpy(img[m:m + p, m:m + p]).to(dev)[None].float()
     with torch.no_grad():
         scores, emb = engine.model.infer_masks_and_features(crop, engine.encoder)
@@ -771,8 +806,9 @@ def run_engine(seed: int, overrides: dict, region: int, per_batch: dict, dev: st
     return launches
 
 
-def train_batches(n: int, seed: int = 0):
-    """n batches in collate_batch's format at the TRAIN geometry from
+def train_batches(n: int, seed: int = 0, geometry: dict = TRAIN):
+    """n batches in collate_batch's format at the `geometry` (PATCH_SIZE,
+    BATCH_SIZE, TOPO_SAMPLE_NUM, MAX_NEIGHBOR_QUERIES of TRAIN) from
     np.random.default_rng(seed): uint8 rgb and masks, about 256 graph
     points per patch (padded to the 128 bucket), TOPO_SAMPLE_NUM x
     MAX_NEIGHBOR_QUERIES pairs within range, at least one valid per
@@ -780,11 +816,12 @@ def train_batches(n: int, seed: int = 0):
     from sam_road_tpu_torch.data.dataset import collate_batch
 
     rng = np.random.default_rng(seed)
-    p, S, K = TRAIN["PATCH_SIZE"], TRAIN["TOPO_SAMPLE_NUM"], TRAIN["MAX_NEIGHBOR_QUERIES"]
+    p, S = geometry["PATCH_SIZE"], geometry["TOPO_SAMPLE_NUM"]
+    K = geometry["MAX_NEIGHBOR_QUERIES"]
     batches = []
     for _ in range(n):
         samples = []
-        for _ in range(TRAIN["BATCH_SIZE"]):
+        for _ in range(geometry["BATCH_SIZE"]):
             n_pts = int(rng.integers(224, 289))
             src = rng.integers(0, n_pts, (S, 1))
             pairs = np.stack([np.broadcast_to(src, (S, K)), rng.integers(0, n_pts, (S, K))], -1)
@@ -803,32 +840,41 @@ def train_batches(n: int, seed: int = 0):
     return batches
 
 
-def run_training(seed: int, dev: str = "cuda"):
-    """Phase 7: Trainer.train_epoch for TRAIN_STEPS steps and validate on
-    one batch at the TRAIN geometry; returns the launches of that run."""
+def run_training(seed: int, dev: str = "cuda", overrides: dict = TRAIN, model=None,
+                 watch=TRAIN_WATCH, per_forward: int = 12):
+    """Phases 7 and 17b: Trainer.train_epoch for TRAIN_STEPS steps and
+    validate on one batch at the TRAIN geometry (the config `overrides`,
+    `model` or seeded random weights); every `watch` parameter must move
+    and, where the config freezes the encoder (FREEZE_ENCODER or
+    ENCODER_LORA), every parameter of its group stay bit-unchanged.
+    Returns the launches of that run."""
     import torch
 
     from sam_road_tpu_torch.config import load_config
     from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
     from sam_road_tpu_torch.ops import _build
-    from sam_road_tpu_torch.training.harness import Trainer
+    from sam_road_tpu_torch.training.harness import Trainer, param_group
 
-    cfg = load_config(overrides=TRAIN)
-    batches = train_batches(TRAIN_STEPS, seed)
-    model = init_random(SAMRoad.from_config(cfg), seed)
+    cfg = load_config(overrides=overrides)
+    batches = train_batches(TRAIN_STEPS, seed, overrides)
+    if model is None:
+        model = init_random(SAMRoad.from_config(cfg), seed)
     trainer = Trainer(cfg, model, output_dir=".", steps_per_epoch=TRAIN_STEPS, device=dev,
                       log_every=1)  # saves no checkpoint: writes nothing
-    watch = {n: p.detach().clone() for n, p in model.named_parameters()
-             if n in ("image_encoder.blocks.0.attn.qkv.weight", "map_decoder.0.weight",
-                      "topo_net.output_proj.weight")}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    named = dict(model.named_parameters())
+    frozen = {n: p.detach().clone() for n, p in named.items() if param_group(n) == "encoder"
+              and (cfg.FREEZE_ENCODER or cfg.ENCODER_LORA)}
+    watch = {n: named[n].detach().clone() for n in watch}
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     logs = trainer.train_epoch(batches, epoch=0)
     metrics = trainer.validate(batches[:1])
-    torch.cuda.synchronize()
+    if dev == "cuda":
+        torch.cuda.synchronize()
     launches = dict(_build.launches)
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     for log in logs:
         print(f"train step {log['batch']}: loss {log['loss']:.6f} mask {log['mask_loss']:.6f} "
               f"topo {log['topo_loss']:.6f} grad_norm {log['grad_norm']:.6f} skipped "
@@ -842,6 +888,11 @@ def run_training(seed: int, dev: str = "cuda"):
     moved = {n: (p.detach() - watch[n]).abs().max().item() for n, p in model.named_parameters()
              if n in watch}
     print(f"train parameters moved (max abs change): {moved}; launches {launches}", flush=True)
+    if frozen:
+        still = all(torch.equal(named[n], p) for n, p in frozen.items())
+        print(f"frozen encoder: {len(frozen)} parameters bit-unchanged {still}", flush=True)
+        if not still:
+            raise SystemExit("a frozen encoder parameter changed")
     if not all(np.isfinite(log["loss"]) and np.isfinite(log["grad_norm"]) for log in logs):
         raise SystemExit("a training loss or grad_norm is not finite")
     if any(log["skipped"] for log in logs) or len(logs) != TRAIN_STEPS:
@@ -850,7 +901,7 @@ def run_training(seed: int, dev: str = "cuda"):
         raise SystemExit("training did not move every watched parameter")
     if not np.isfinite(metrics["val_loss"]):
         raise SystemExit("validation loss is not finite")
-    want = 12 * (TRAIN_STEPS + 1)  # every encoder attention of every forward pass
+    want = per_forward * (TRAIN_STEPS + 1)  # every encoder attention of every forward
     if launches.get("fused_attention") != want:
         raise SystemExit(f"training launches {launches}, expected fused_attention {want}")
     return launches
@@ -1042,10 +1093,10 @@ def write_cityscale_fixture(root: str, size: int, spacing: int = 64, seed: int =
 
 
 def run_cli(data_root: str, work: str, name: str, overrides: dict, steps: int,
-            dev: str = "cuda"):
+            dev: str = "cuda", base: str = FLAGSHIP, args=()):
     """One `python -m sam_road_tpu_torch.cli.train` run, in process: the
-    flagship config's keys plus CLI and `overrides`, --dev_run, `steps`
-    steps of one epoch, validation with panels, a checkpoint. Fails unless
+    `base` config's keys plus CLI and `overrides`, --dev_run, `steps` steps
+    of one epoch (and `args`), validation with panels, a checkpoint. Fails unless
     every loss is finite, no step was skipped, and the checkpoint and
     VAL_VIZ_COUNT panels exist. Returns the trainer, the config, the
     launches, the peak memory and the step times."""
@@ -1055,7 +1106,7 @@ def run_cli(data_root: str, work: str, name: str, overrides: dict, steps: int,
     from sam_road_tpu_torch.config import load_config, read_flat_yaml, write_flat_yaml
     from sam_road_tpu_torch.ops import _build
 
-    values = read_flat_yaml(FLAGSHIP)
+    values = read_flat_yaml(base)
     values.update(CLI)
     values.update(overrides)
     cfg_path = os.path.join(work, f"{name}.yaml")
@@ -1069,7 +1120,8 @@ def run_cli(data_root: str, work: str, name: str, overrides: dict, steps: int,
     _build.reset_launches()
     t = time.time()
     trainer = train.main(["--config", cfg_path, "--dev_run", "--steps_per_epoch", str(steps),
-                          "--device", dev, "--data_root", data_root, "--output_dir", out])
+                          "--device", dev, "--data_root", data_root, "--output_dir", out,
+                          *args])
     if dev == "cuda":
         torch.cuda.synchronize()
     wall = time.time() - t
@@ -1335,19 +1387,38 @@ def check_encoder_modes(seed: int, dev: str = "cuda", rounds: int = 4):
     return times
 
 
-def write_sam_checkpoint(path: str, seed: int):
+def write_sam_checkpoint(path: str, seed: int, sam_decoder: bool = False,
+                         sam_version: str = "vit_b"):
     """A SAM-format .pth (image_encoder.* keys, fp32) from seeded weights at
     1024 px geometry: the 64x64 pos embed and 127-row global rel-pos tables
-    that load_and_convert resizes for 512 px."""
+    that load_and_convert resizes for 512 px. With `sam_decoder` it also
+    carries SAM's mask_decoder.* and prompt_encoder.* keys, the prompt
+    encoder's point and mask-input layers among them (the null prompt reads
+    none of those: they must be skipped)."""
     import torch
 
     from sam_road_tpu_torch.config import load_config
     from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
 
-    model = init_random(SAMRoad.from_config(load_config(overrides={**BENCH, "PATCH_SIZE": 1024})),
-                        seed)
-    torch.save({f"image_encoder.{k}": v for k, v in model.image_encoder.state_dict().items()},
-               path)
+    over = {**BENCH, "PATCH_SIZE": 1024, "USE_SAM_DECODER": sam_decoder,
+            "SAM_VERSION": sam_version}
+    model = init_random(SAMRoad.from_config(load_config(overrides=over)), seed)
+    state = {f"image_encoder.{k}": v for k, v in model.image_encoder.state_dict().items()}
+    if sam_decoder:
+        state.update((k, v) for k, v in model.state_dict().items()
+                     if k.startswith(("prompt_encoder.", "mask_decoder.")))
+        gen = torch.Generator().manual_seed(seed)
+        extra = {f"point_embeddings.{i}.weight": (1, 256) for i in range(4)}
+        extra.update({"not_a_point_embed.weight": (1, 256),
+                      "mask_downscaling.0.weight": (4, 1, 2, 2), "mask_downscaling.0.bias": (4,),
+                      "mask_downscaling.1.weight": (4,), "mask_downscaling.1.bias": (4,),
+                      "mask_downscaling.3.weight": (16, 4, 2, 2), "mask_downscaling.3.bias": (16,),
+                      "mask_downscaling.4.weight": (16,), "mask_downscaling.4.bias": (16,),
+                      "mask_downscaling.6.weight": (256, 16, 1, 1),
+                      "mask_downscaling.6.bias": (256,)})
+        state.update((f"prompt_encoder.{k}", torch.randn(shape, generator=gen))
+                     for k, shape in extra.items())
+    torch.save(state, path)
 
 
 def run_infer_cli(seed: int, work: str, dev: str = "cuda"):
@@ -1612,6 +1683,257 @@ def run_evaluate_cli(work: str) -> dict:
     if bad:
         raise SystemExit("cli.evaluate: " + "; ".join(bad))
     return seconds
+
+
+def lora_values(extra: dict | None = None) -> dict:
+    """LORA_CONFIG's keys as load_config overrides, with `extra` on top (a
+    CPU rehearsal's smaller geometry)."""
+    from sam_road_tpu_torch.config import read_flat_yaml
+
+    values = read_flat_yaml(LORA_CONFIG)
+    values.update(extra or {})
+    return values
+
+
+def live_lora(model, seed: int):
+    """LoRA's B ~ N(0, 1/rank) from a seeded generator: init_random leaves
+    it zero, as the JAX init does, and a zero B hides the adapters."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".linear_b_" in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * p.shape[1] ** -0.5)
+    return model
+
+
+def check_lora_model(model, values: dict, dev: str = "cuda", n: int = 4):
+    """Phase 17a: the LoRA + SAM-decoder model as the engine runs it (the
+    config's compute dtype, the eager encoder through K5) against the same
+    weights in fp32 plain ops (FLASH_ATTENTION off) on n random patches:
+    the embeddings' and the mask logits' cosine >= COS_MIN. The adapters
+    are live: zeroing B moves the embeddings."""
+    import torch
+    import torch.nn.functional as F
+
+    from sam_road_tpu_torch.config import load_config
+    from sam_road_tpu_torch.models.sam_road import SAMRoad
+
+    model.to(dev).eval()
+    ref = SAMRoad.from_config(load_config(overrides={**values, "COMPUTE_DTYPE": "float32",
+                                                     "FLASH_ATTENTION": False}))
+    ref.load_state_dict(model.state_dict())
+    ref.to(dev).eval()
+    p = model.patch_size
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rgb = torch.randint(0, 255, (n, p, p, 3), generator=gen, device=dev).float()
+    adapters = {k: v for k, v in model.named_parameters() if ".linear_b_" in k}
+    with torch.no_grad():
+        emb = model.image_encoder(model.normalize(rgb))
+        logits = model.mask_logits(emb)
+        emb32 = ref.image_encoder(ref.normalize(rgb))
+        logits32 = ref.mask_logits(emb32)
+        saved = {k: v.clone() for k, v in adapters.items()}
+        for v in adapters.values():
+            v.zero_()
+        emb_b0 = model.image_encoder(model.normalize(rgb))
+        for k, v in adapters.items():
+            v.copy_(saved[k])
+    del ref
+
+    def cos(a, b):
+        return F.cosine_similarity(a.float().flatten(), b.float().flatten(), dim=0).item()
+
+    c_emb, c_mask = cos(emb, emb32), cos(logits, logits32)
+    live = (emb_b0.float() - emb.float()).abs().max().item()
+    ok = (c_emb >= COS_MIN and c_mask >= COS_MIN and live > 0
+          and bool(torch.isfinite(logits).all()) and logits.shape == (n, p, p, 2))
+    print(f"LoRA rank {model.lora_rank} + SAM decoder ({values['COMPUTE_DTYPE']}, K5) vs fp32 "
+          f"plain on {n} patches: embeddings cosine {c_emb:.6f}, mask logits {tuple(logits.shape)} "
+          f"cosine {c_mask:.6f} (min {COS_MIN}); zeroing LoRA's B moves the embeddings by up to "
+          f"{live:.4f} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("the LoRA + SAM-decoder model disagrees with its fp32 plain version")
+
+
+def run_lora(seed: int, dev: str = "cuda", extra: dict | None = None, region: int = REGION,
+             per_forward: int = 12):
+    """Phase 17a-b: LORA_CONFIG as it stands (with `extra` on top) and
+    seeded weights with live adapters: check_lora_model, a `region` px
+    region through the engine with thresholds by quantile (K5, per_forward
+    launches a forward), then run_training's steps and validation at the
+    config's geometry, where the base encoder stays bit-unchanged and the
+    adapters, the SAM decoder and TopoNet move. Returns the launches of
+    both."""
+    import torch
+
+    from sam_road_tpu_torch.config import load_config
+    from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
+
+    values = lora_values(extra)
+    model = live_lora(init_random(SAMRoad.from_config(load_config(overrides=values)), seed),
+                      seed + 1)
+    check_lora_model(model, values, dev)
+    out = {"region": run_engine(seed, values, region, {"fused_attention": per_forward}, dev,
+                                model=model)}
+    out["training"] = run_training(seed, dev, overrides=values, model=model, watch=LORA_WATCH,
+                                   per_forward=per_forward)
+    del model
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_lora_cli(seed: int, work: str, dev: str = "cuda", extra: dict | None = None,
+                 per_forward: int = 12):
+    """Phase 17c: the CLIs with LORA_CONFIG (and `extra`), from a SAM-format
+    .pth with the decoder's keys (write_sam_checkpoint), over phase 9's
+    dataset and phase 10's tiles under `work`: load_and_convert fills every
+    parameter but the adapters and TopoNet, the SAM decoder's included;
+    `cli.train --dev_run` trains LORA_CLI_STEPS steps (K5, the base encoder
+    bit-equal to the checkpoint's after them), `cli.test --dev_run`
+    calibrates on its checkpoint, and `cli.infer` runs INFER_TILES tiles
+    with thresholds by quantile (exact launches, non-empty graphs).
+    Returns the launches of each CLI."""
+    import torch
+
+    from sam_road_tpu_torch.cli import infer, test
+    from sam_road_tpu_torch.config import load_config, write_flat_yaml
+    from sam_road_tpu_torch.data.dataset import read_rgb_img
+    from sam_road_tpu_torch.data.partitions import cityscale_data_partition, get_patch_info_one_img
+    from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
+    from sam_road_tpu_torch.models.convert import load_and_convert, load_weights
+    from sam_road_tpu_torch.ops import _build
+
+    t = time.time()
+    values = lora_values(extra)
+    pth = os.path.join(work, "sam_decoder.pth")
+    write_sam_checkpoint(pth, seed, sam_decoder=True, sam_version=values["SAM_VERSION"])
+    cfg = load_config(overrides=values)
+    model, matched, mismatched = load_and_convert(pth, cfg)
+    names = list(model.state_dict())
+    want = {n for n in names if ".linear_" in n or n.startswith("topo_net.")}
+    n_dec = sum(n.startswith(("prompt_encoder.", "mask_decoder.")) for n in matched)
+    print(f"load_and_convert of the SAM-format .pth: {len(matched)} matched ({n_dec} of the SAM "
+          f"decoder's {sum(n.startswith(('prompt_encoder.', 'mask_decoder.')) for n in names)}), "
+          f"{len(mismatched)} left at init (the adapters and TopoNet: {set(mismatched) == want}); "
+          f"{time.time() - t:.1f} s", flush=True)
+    if set(mismatched) != want:
+        raise SystemExit(f"load_and_convert left unexpected parameters unloaded: "
+                         f"{sorted(set(mismatched) ^ want)[:8]}")
+    base = {n: v.clone() for n, v in model.state_dict().items()
+            if n.startswith("image_encoder.") and ".linear_" not in n}
+    start = {n: model.state_dict()[n].clone() for n in LORA_CLI_WATCH}
+    del model
+
+    run = run_cli(os.path.join(work, "data"), work, "lora", {**(extra or {}),
+                  "FUSED_ENCODER_TRAIN": False}, LORA_CLI_STEPS, dev, base=LORA_CONFIG,
+                  args=("--sam_ckpt", pth))
+    launches = {"cli_train": run["launches"]}
+    if run["launches"] != {"fused_attention": per_forward * (LORA_CLI_STEPS + 2)}:
+        raise SystemExit(f"cli.train with LoRA: launches {run['launches']}")  # + eval, panels
+    state = {n: v.cpu() for n, v in run["trainer"].model.state_dict().items()}
+    same = all(torch.equal(state[n], v) for n, v in base.items())
+    moved = {n: (state[n] - v).abs().max().item() for n, v in start.items()}
+    print(f"cli.train with LoRA: base encoder bit-equal to the checkpoint's after "
+          f"{LORA_CLI_STEPS} steps {same}; moved (max abs change) {moved}", flush=True)
+    if not same or not all(v > 0 for v in moved.values()):
+        raise SystemExit("cli.train with LoRA changed the frozen base encoder or left an "
+                         "adapter or the decoder unchanged")
+    del run, state, base
+    gc.collect()
+
+    _build.reset_launches()
+    out_json = os.path.join(work, "lora_thresholds.json")
+    results = test.main(["--config", os.path.join(work, "lora.yaml"), "--checkpoint",
+                         os.path.join(work, "lora", "ckpt_epoch_0.pt"), "--dev_run",
+                         "--data_root", os.path.join(work, "data"), "--output_json", out_json,
+                         "--device", dev])
+    launches["cli_test"] = dict(_build.launches)
+    print(f"cli.test with LoRA: launches {launches['cli_test']}, thresholds "
+          + ", ".join(f"{k} {v['threshold']}" for k, v in results.items()), flush=True)
+    if set(results) != {"keypoint", "road", "topo"} or not all(
+            np.isfinite(v["threshold"]) for v in results.values()):
+        raise SystemExit(f"cli.test with LoRA: thresholds missing or not finite: {results}")
+
+    sat = os.path.join(work, "infer_data", "cityscale", "20cities")
+    test_ids = cityscale_data_partition()[2][:INFER_TILES]
+    model, mismatched = load_weights(pth, cfg)
+    if set(mismatched) != want:
+        raise SystemExit("load_weights left unexpected parameters unloaded")
+    engine = TiledInferenceEngine(cfg, model, dev)
+    engine.config.ITSC_THRESHOLD = engine.config.ROAD_THRESHOLD = 1.0
+    _, _, kp, road = engine.infer_one_img(read_rgb_img(os.path.join(
+        sat, f"region_{test_ids[0]}_sat.png")))
+    values["ITSC_THRESHOLD"] = float(np.quantile(kp / 255.0, 0.99))
+    values["ROAD_THRESHOLD"] = float(np.quantile(road / 255.0, 0.92))
+    cfg_path = os.path.join(work, "lora_infer.yaml")
+    write_flat_yaml(cfg_path, values)
+    del model, engine
+    gc.collect()
+    size = read_rgb_img(os.path.join(sat, f"region_{test_ids[0]}_sat.png")).shape[0]
+    n_patches = len(get_patch_info_one_img(0, size, int(cfg.SAMPLE_MARGIN), int(cfg.PATCH_SIZE),
+                                           int(cfg.INFER_PATCHES_PER_EDGE)))
+    batches = INFER_TILES * -(-n_patches // int(cfg.INFER_BATCH_SIZE))
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI writes ./save/<output_dir>
+    try:
+        _build.reset_launches()
+        t = time.time()
+        out = infer.main(["--config", cfg_path, "--checkpoint", pth, "--data_root",
+                          os.path.join(work, "infer_data"), "--output_dir", "lora",
+                          "--max_tiles", str(INFER_TILES), "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.time() - t
+        launches["cli_infer"] = dict(_build.launches)
+        graphs = []
+        for tile in test_ids:
+            with open(os.path.join(out, "graph", f"{tile}.p"), "rb") as f:
+                graphs.append(pickle.load(f))
+            for rel in (f"mask/{tile}_road.png", f"mask/{tile}_itsc.png", f"viz/{tile}.png"):
+                if not os.path.getsize(os.path.join(out, rel)):
+                    raise SystemExit(f"cli.infer with LoRA: empty {rel}")
+        with open(os.path.join(out, "inference_time.txt")) as f:
+            loop_s = float(f.read().split(" in ")[-1].split(" seconds")[0])
+    finally:
+        os.chdir(cwd)
+    n_nodes = [len(g) for g in graphs]
+    n_edges = [sum(len(v) for v in g.values()) // 2 for g in graphs]
+    print(f"cli.infer with LoRA: thresholds ITSC {values['ITSC_THRESHOLD']} ROAD "
+          f"{values['ROAD_THRESHOLD']}; {INFER_TILES} regions in {loop_s:.3f} s "
+          f"({loop_s / INFER_TILES:.3f} s per region, the CLI's inference_time.txt), run with "
+          f"loading {wall:.1f} s; nodes {n_nodes} edges {n_edges}; launches "
+          f"{launches['cli_infer']}", flush=True)
+    if launches["cli_infer"] != {"fused_attention": per_forward * batches}:
+        raise SystemExit(f"cli.infer with LoRA: launches {launches['cli_infer']}, expected "
+                         f"fused_attention {per_forward * batches}")
+    if not all(n_nodes) or not all(n_edges):
+        raise SystemExit("cli.infer with LoRA: an empty graph")
+    return launches
+
+
+def run_config_regions(seed: int, dev: str = "cuda"):
+    """Phase 18: one REGION px region through each REGION_CONFIGS file as it
+    stands (FUSED_ENCODER: K1-K4), seeded weights; returns each run's
+    launches."""
+    import torch
+
+    from sam_road_tpu_torch.config import read_flat_yaml
+
+    out = {}
+    for path, per_batch in REGION_CONFIGS.items():
+        values = read_flat_yaml(path)
+        print(f"{path}: {values['SAM_VERSION']} at {values['PATCH_SIZE']} px, batch "
+              f"{values['INFER_BATCH_SIZE']}, {values['COMPUTE_DTYPE']}, FUSED_ENCODER "
+              f"{values['FUSED_ENCODER']}", flush=True)
+        out[path] = run_engine(seed, values, REGION, per_batch, dev, repeats=1)
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def check_tool_kernels(dev: str = "cuda", tokens: int = 32 * 1024, dim: int = 768,
@@ -2256,8 +2578,21 @@ def main():
 
         phase("16 the evaluation CLI over cli.infer's graphs")
         run_evaluate_cli(work)
+
+        phase(f"17 LoRA + SAM decoder ({LORA_CONFIG}): the model, a region, training, "
+              "and the training, calibration and inference CLIs")
+        t = time.time()
+        lora_k5 = check_flash_attention(cases=LORA_FLASH_CASES)
+        lora_launches = run_lora(SEED)
+        lora_launches.update(run_lora_cli(SEED, work))
+        print(f"phase 17 took {time.time() - t:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    phase("18 vit_l at 256 px and ViT-B at 1024 px: a region through each config")
+    t = time.time()
+    config_launches = run_config_regions(SEED)
+    print(f"phase 18 took {time.time() - t:.1f} s", flush=True)
     grid_launches = {**infer_runs["pad_free"]["launches"],
                      **infer_runs["pad_free_g4"]["launches"], **infer_runs["rolled"]["launches"]}
 
@@ -2301,10 +2636,17 @@ def main():
     print(f"phase 15 took {time.time() - t:.1f} s", flush=True)
 
     kernels = []
-    def vith_fields(name):  # phase 12's head_dim 80 reading and vit_h region launches
-        extra = {"head_dim_80": vith[name]} if name in vith else {}
+    def vith_fields(name):  # phase 12's head_dim 80 reading and vit_h region launches,
+        extra = {"head_dim_80": vith[name]} if name in vith else {}  # phase 17's and 18's
         if name in vith_launches:
             extra["vith_region_launches"] = vith_launches[name]
+        if name == "fused_attention":
+            extra["lora_launches"] = {k: v.get(name, 0) for k, v in lora_launches.items()}
+            extra["lora_shapes"] = lora_k5
+        for path, runs in config_launches.items():
+            if name in runs:
+                key = os.path.basename(path).removesuffix(".yaml")
+                extra[f"{key}_region_launches"] = runs[name]
         return extra
 
     for name, (src, replaces) in KERNEL_META.items():

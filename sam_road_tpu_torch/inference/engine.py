@@ -2,8 +2,9 @@
 its plain single-device path).
 
   phase 1  upload the uint8 region once, crop each batch of patches on the
-           device, run the encoder (fused kernels with FUSED_ENCODER) and
-           the map decoder, fuse the masks as int32 fixed point (1/1024)
+           device, run the encoder (fused kernels with FUSED_ENCODER, which
+           LoRA and the SAM decoder refuse; else the eager encoder, K5) and
+           the mask decoder, fuse the masks as int32 fixed point (1/1024)
            and finalise to uint8 by truncation; the feature maps stay on
            the device;
   host     extract vertices (graph/extraction.py, native NMS) and build the
@@ -60,6 +61,10 @@ class TiledInferenceEngine:
         self.point_bucket = point_bucket
         self.patch_size = int(config.PATCH_SIZE)
         self.batch_size = int(config.INFER_BATCH_SIZE)
+        if config.FUSED_ENCODER and (model.use_sam_decoder or model.lora_rank):
+            # the JAX engine's assertion: the fused kernels read the plain
+            # encoder's weights, and its decoder path is the map decoder's
+            raise ValueError("FUSED_ENCODER supports the naive decoder without LoRA")
         self.encoder = encoder_forward_fused if config.FUSED_ENCODER else None
         self.last_timings: dict = {}
 

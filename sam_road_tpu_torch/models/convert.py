@@ -9,20 +9,27 @@ the pos-embed and global rel-pos resize for PATCH_SIZE != 1024 with the
 same F.interpolate calls and the substring quirk (resize_sam_pos_embed),
 then a partial overlay by name and shape onto a freshly built SAMRoad that
 reports the matched and mismatched parameter names (load_and_convert,
-load_mae_encoder_params). Keys the model does not have, mask_decoder.* and
-prompt_encoder.* among them (the SAM decoder is not ported), are skipped. load_checkpoint reads this
+load_mae_encoder_params). A SAM checkpoint's mask_decoder.* keys and its
+prompt encoder's pe_layer and no_mask_embed load into the SAM decoder
+(USE_SAM_DECODER), a SAMRoad checkpoint's attn.qkv.linear_* keys into the
+LoRA adapters (ENCODER_LORA); keys the model does not have (the prompt
+encoder's point_embeddings, not_a_point_embed and mask_downscaling, as in
+the JAX package; the decoder a config does not use) are skipped.
+load_checkpoint reads this
 package's own training checkpoints (ckpt_epoch_N.pt) strictly;
 load_weights picks between the two by the file's content. A directory (a
 JAX orbax checkpoint) raises: the port cannot read orbax.
 
 The bridge (tests, chip_smoke.py) is the inverse of the JAX package's
-_convert_encoder_key / _convert_decoder_key / _convert_toponet_key.
+_convert_encoder_key / _convert_decoder_key / _convert_toponet_key and
+convert_sam_decoder_key.
 
 The port's parameters carry the reference's torch names, so:
   Dense kernel (in, out)              -> Linear weight (out, in)
   Conv kernel HWIO                    -> Conv2d weight OIHW
   ConvTranspose2x2 kernel (2,2,in,out) -> ConvTranspose2d weight (in,out,2,2)
   LayerNorm scale                     -> weight
+  no_mask_embed (256,)                -> nn.Embedding weight [1, 256]
 Any leaf the bridge cannot place, and any state-dict key it leaves unfilled,
 raises.
 """
@@ -50,6 +57,21 @@ _RENAMES = [  # flax module name -> torch module path, applied per segment
     (r"^patch_embed_proj$", "patch_embed.proj"),
     (r"^mlp_lin(\d)$", r"mlp.lin\1"),
 ]
+# the LoRA adapters: flax siblings of qkv, torch children of it
+_LORA = ("linear_a_q", "linear_b_q", "linear_a_v", "linear_b_v")
+# sam_decoder flax leaves / modules -> SAM's torch names
+_SAM_PARAMS = {
+    "pe_gaussian_matrix": "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
+    "no_mask_embed": "prompt_encoder.no_mask_embed.weight",
+    "iou_token": "mask_decoder.iou_token.weight",
+    "mask_tokens": "mask_decoder.mask_tokens.weight",
+}
+_SAM_RENAMES = [
+    (r"^layers_(\d+)$", r"layers.\1"),
+    (r"^mlp_lin(\d)$", r"mlp.lin\1"),
+    (r"^upscale_(\d)$", r"output_upscaling.\1"),
+    (r"^hyper_mlps_(\d+)$", r"output_hypernetworks_mlps.\1"),
+]
 
 
 def _flatten(tree, prefix=()):
@@ -60,14 +82,37 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
+def _sam_decoder_name(mods: list, leaf: str):
+    """sam_decoder/... flax path (below the top) -> (torch key, transform):
+    the inverse of the JAX package's convert_sam_decoder_key."""
+    if not mods:
+        return _SAM_PARAMS[leaf], "row" if leaf == "no_mask_embed" else None
+    names = []
+    for m in mods:
+        for pat, rep in _SAM_RENAMES:
+            m = re.sub(pat, rep, m)
+        names.append(m)
+    op = None
+    if leaf == "kernel":
+        op = "convT" if mods[0].startswith("upscale_") else "kernel"
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "weight"
+    return ".".join(["mask_decoder"] + names + [leaf]), op
+
+
 def _torch_name(path: tuple):
     """flax path -> (torch key, transform of the array)."""
     top, *mods, leaf = path
+    if top == "sam_decoder":
+        return _sam_decoder_name(mods, leaf)
     if top not in ("image_encoder", "map_decoder", "topo_net"):
         raise KeyError(f"unknown top-level module in {'/'.join(path)}")
     if mods[-2:] == ["self_attn", "in_proj"]:  # nn.MultiheadAttention packing
         mods = mods[:-1]
         leaf = {"kernel": "in_proj_weight", "bias": "in_proj_bias"}[leaf]
+    if top == "image_encoder" and mods[-1:] and mods[-1] in _LORA:
+        mods = mods[:-1] + ["qkv", mods[-1]]
     names = []
     for m in mods:
         if top == "map_decoder":
@@ -88,6 +133,8 @@ def _torch_name(path: tuple):
 
 
 def _transform(arr: np.ndarray, op):
+    if op == "row":
+        return arr[None]
     if op == "convT":
         return arr.transpose(2, 3, 0, 1)
     if op == "kernel":
@@ -117,8 +164,8 @@ def load_flax_params(module: torch.nn.Module, tree, scope: str | None = None):
     `tree` is that submodule's subtree and `module` its counterpart.
     Raises on any unconsumed leaf, unfilled key or shape mismatch."""
     state = from_flax_params({scope: tree} if scope else tree)
-    if scope:
-        state = {k[len(scope) + 1:]: v for k, v in state.items()}
+    if scope:  # the SAM decoder's keys carry no prefix of its own
+        state = {k.removeprefix(scope + "."): v for k, v in state.items()}
     want = module.state_dict()
     extra = sorted(set(state) - set(want))
     missing = sorted(set(want) - set(state))

@@ -187,7 +187,12 @@ def encoder_forward_fused(encoder: ImageEncoderViT, x, differentiable: bool = Fa
     encoder.dtype, through K1-K4. By default under torch.no_grad (the
     engine's phase 1). differentiable=True goes through the K6 wrappers
     with autograd on (the training step); remat then checkpoints each block,
-    so only the block inputs persist to the backward pass."""
+    so only the block inputs persist to the backward pass. An encoder with
+    LoRA adapters raises ValueError: the kernels read the base qkv weights
+    and would drop them."""
+    if encoder.lora_rank:
+        raise ValueError("the fused encoder does not support ENCODER_LORA (its kernels read "
+                         "the base qkv weights and would drop the adapters)")
     if differentiable:
         return _forward(encoder, x, True, remat and torch.is_grad_enabled())
     with torch.no_grad():

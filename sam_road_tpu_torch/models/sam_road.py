@@ -1,7 +1,9 @@
-"""SAMRoad: SAM ViT encoder + map decoder + TopoNet (counterpart of
+"""SAMRoad: SAM ViT encoder + mask decoder + TopoNet (counterpart of
 sam_road_tpu/models/sam_road.py): the training forward and the two
-inference entry points the engine uses. The SAM mask decoder and LoRA are
-not ported yet."""
+inference entry points the engine uses. The mask decoder is the naive
+map_decoder, or with USE_SAM_DECODER SAM's own (models/sam_decoder.py:
+prompt_encoder and mask_decoder, no map_decoder); ENCODER_LORA adds rank
+LORA_RANK adapters to every encoder block's qkv (models/vit.py::LoRAQKV)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import torch
 from torch import nn
 
 from sam_road_tpu_torch.models.decoder import MapDecoder
+from sam_road_tpu_torch.models.sam_decoder import MaskDecoder, PromptEncoder, sam_mask_logits
 from sam_road_tpu_torch.models.toponet import TopoNet
 from sam_road_tpu_torch.models.vit import ENCODER_SPECS, ImageEncoderViT
 from sam_road_tpu_torch.ops.sampling import bilinear_sample_points
@@ -23,32 +26,41 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class SAMRoad(nn.Module):
     def __init__(self, sam_version: str = "vit_b", patch_size: int = 512,
                  toponet_version: str = "normal", use_flash: bool = True,
-                 dtype=torch.bfloat16, remat: bool = False):
+                 dtype=torch.bfloat16, remat: bool = False, use_sam_decoder: bool = False,
+                 lora_rank: int = 0):
         super().__init__()
         if sam_version not in ENCODER_SPECS:
             raise ValueError(f"unknown SAM_VERSION {sam_version!r}")
         self.sam_version = sam_version
         self.patch_size = patch_size
         self.dtype = dtype
+        self.use_sam_decoder = use_sam_decoder
+        self.lora_rank = lora_rank
         enc = ENCODER_SPECS[sam_version]
         self.image_encoder = ImageEncoderViT(
             img_size=patch_size, embed_dim=enc["embed_dim"], depth=enc["depth"],
             num_heads=enc["num_heads"],
             global_attn_indexes=enc["global_attn_indexes"], use_flash=use_flash,
-            dtype=dtype, remat=remat)
-        self.map_decoder = MapDecoder()
+            dtype=dtype, remat=remat, lora_rank=lora_rank)
+        if use_sam_decoder:
+            self.prompt_encoder = PromptEncoder()
+            self.mask_decoder = MaskDecoder()
+        else:
+            self.map_decoder = MapDecoder()
         self.topo_net = TopoNet(feature_dim=256, version=toponet_version)
 
     @classmethod
     def from_config(cls, config) -> "SAMRoad":
-        if config.USE_SAM_DECODER or config.ENCODER_LORA:
-            raise NotImplementedError("USE_SAM_DECODER and ENCODER_LORA are not ported yet")
+        """The JAX ModelSpec.from_config's reading: LORA_RANK counts only
+        with ENCODER_LORA."""
         return cls(sam_version=str(config.SAM_VERSION),
                    patch_size=int(config.PATCH_SIZE),
                    toponet_version=str(config.TOPONET_VERSION or "normal"),
                    use_flash=bool(config.FLASH_ATTENTION),
                    dtype=DTYPES[str(config.COMPUTE_DTYPE or "float32")],
-                   remat=bool(config.REMAT_ENCODER))
+                   remat=bool(config.REMAT_ENCODER),
+                   use_sam_decoder=bool(config.USE_SAM_DECODER),
+                   lora_rank=int(config.LORA_RANK) if config.ENCODER_LORA else 0)
 
     def normalize(self, rgb):
         """uint8-range [B, H, W, 3] -> normalised input in self.dtype."""
@@ -56,9 +68,17 @@ class SAMRoad(nn.Module):
         std = torch.tensor(PIXEL_STD, dtype=torch.float32, device=rgb.device)
         return ((rgb.float() - mean) / std).to(self.dtype)
 
+    def mask_logits(self, embeddings):
+        """Feature maps -> fp32 mask logits [B, H, W, 2] through the map
+        decoder or SAM's."""
+        if self.use_sam_decoder:
+            return sam_mask_logits(self.prompt_encoder, self.mask_decoder, embeddings,
+                                   self.patch_size)
+        return self.map_decoder(embeddings).float()
+
     def decode_masks(self, embeddings):
         """Feature maps -> fp32 sigmoid mask scores [B, H, W, 2]."""
-        return torch.sigmoid(self.map_decoder(embeddings).float())
+        return torch.sigmoid(self.mask_logits(embeddings))
 
     def forward(self, rgb, graph_points, pairs, valid, deterministic=True, generator=None,
                 encoder=None):
@@ -73,7 +93,7 @@ class SAMRoad(nn.Module):
         [B, H, W, 2] and topo_logits, topo_scores [B, S, K, 1]."""
         x = self.normalize(rgb)
         emb = self.image_encoder(x) if encoder is None else encoder(self.image_encoder, x)
-        mask_logits = self.map_decoder(emb).float()
+        mask_logits = self.mask_logits(emb)
         feats = bilinear_sample_points(emb, graph_points, self.patch_size)
         topo_logits, topo_scores = self.topo_net(graph_points, feats, pairs, valid,
                                                  deterministic, generator)
@@ -98,18 +118,29 @@ class SAMRoad(nn.Module):
 def init_random(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights (there are no checkpoints to load yet): every
     matrix and conv kernel ~ N(0, 1/fan_in) (flax's lecun_normal, as the JAX
-    package's init_params), biases 0, norms identity, pos_embed and rel-pos
-    tables ~ N(0, 0.02^2)."""
+    package's init_params; a ConvTranspose's fan-in is its input channels),
+    biases 0, norms identity, pos_embed and rel-pos tables ~ N(0, 0.02^2),
+    the SAM decoder's tokens, no-mask embedding and Gaussian matrix
+    ~ N(0, 1). LoRA's B stays zero, as the JAX init leaves it, so the
+    adapters start as the identity and an encoder overlaid from a SAM
+    checkpoint starts as SAM's."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("pos_embed", "rel_pos_h", "rel_pos_w"):
             p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+        elif ".linear_b_" in name:
+            p.zero_()
+        elif name.endswith(("iou_token.weight", "mask_tokens.weight", "no_mask_embed.weight",
+                            "positional_encoding_gaussian_matrix")):
+            p.copy_(torch.randn(p.shape, generator=gen))
         elif p.ndim >= 2:
-            fan_in = p.shape[0] if name.startswith("map_decoder") else p[0].numel()
+            conv_t = name.startswith("map_decoder") or ".output_upscaling." in name
+            fan_in = p.shape[0] if conv_t else p[0].numel()
             p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
         elif "norm" in name or name.endswith(("neck.1.weight", "neck.3.weight",
-                                              "map_decoder.1.weight")):
+                                              "map_decoder.1.weight",
+                                              "output_upscaling.1.weight")):
             p.fill_(1.0 if leaf == "weight" else 0.0)
         else:
             p.zero_()

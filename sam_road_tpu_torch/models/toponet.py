@@ -6,7 +6,8 @@ tgt - src], runs a 3-layer post-norm transformer encoder (eps 1e-5, ReLU
 FFN, nn.TransformerEncoderLayer semantics) within each sample group under a
 key-padding mask, and emits one logit per pair. Masked keys get
 finfo(float32).min and the softmax is fp32. Groups whose pairs are all
-invalid have their mask flipped to avoid NaN. The reference's dead
+invalid have their mask flipped to avoid NaN. 'no_transformer' has no
+encoder layers (no parameters, as in the JAX module). The reference's dead
 'no_tgt_features' branch is kept: that version behaves as 'normal'.
 Training (deterministic=False) applies dropout at p = 0.1 after
 self-attention and twice in the feed-forward, as the JAX layer does, with
@@ -97,10 +98,11 @@ class TopoNet(nn.Module):
         self.hidden_dim = hidden_dim
         self.feature_proj = nn.Linear(feature_dim, hidden_dim)
         self.pair_proj = nn.Linear(2 * hidden_dim + 2, hidden_dim)
-        self.transformer_encoder = _Encoder([
-            TransformerEncoderLayer(hidden_dim, num_heads, hidden_dim)
-            for _ in range(num_attn_layers)
-        ])
+        if version != "no_transformer":  # as the JAX module, which never builds them
+            self.transformer_encoder = _Encoder([
+                TransformerEncoderLayer(hidden_dim, num_heads, hidden_dim)
+                for _ in range(num_attn_layers)
+            ])
         self.output_proj = nn.Linear(hidden_dim, 1)
 
     def forward(self, points, point_features, pairs, pairs_valid, deterministic=True,

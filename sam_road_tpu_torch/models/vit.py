@@ -11,7 +11,11 @@ attention over at least 128 tokens folds the bias into q and k
 the JAX encoder's vit.py:181-196 does on the TPU; the rest is plain torch
 and differentiable, so this is the training encoder. Inputs and outputs are
 NHWC like the JAX encoder; weights stay float32 and are cast to the compute
-dtype at use. With `remat` (REMAT_ENCODER) each block is checkpointed
+dtype at use. With `lora_rank` r > 0 (ENCODER_LORA) each block's qkv is a
+LoRAQKV: rank-r adapters on the q and v slices (the JAX encoder's
+vit.py:141-154), under the reference's state-dict keys
+(attn.qkv.linear_{a,b}_{q,v}.weight); the fused encoder refuses such a
+module. With `remat` (REMAT_ENCODER) each block is checkpointed
 (torch.utils.checkpoint), as the JAX encoder's nn.remat(Block): only the
 block inputs persist to the backward pass, which recomputes the block. The
 fused path over the same module is models/fast_encoder.py.
@@ -99,18 +103,46 @@ def fold_rel_pos_qk(q, k, Rh, Rw, hw, scale):
     return q_aug, k_aug
 
 
+class LoRAQKV(nn.Linear):
+    """The qkv projection with rank-r LoRA adapters on its q and v slices
+    (the reference's _LoRA_qkv, model.py:152-187): the first `dim` output
+    columns gain b_q(a_q(x)), the last `dim` gain b_v(a_v(x)). B starts at
+    zero, so a fresh adapter leaves the projection unchanged. Computes in
+    the dtype of x."""
+
+    def __init__(self, dim: int, rank: int):
+        super().__init__(dim, 3 * dim)
+        self.linear_a_q = nn.Linear(dim, rank, bias=False)
+        self.linear_b_q = nn.Linear(rank, dim, bias=False)
+        self.linear_a_v = nn.Linear(dim, rank, bias=False)
+        self.linear_b_v = nn.Linear(rank, dim, bias=False)
+        nn.init.zeros_(self.linear_b_q.weight)
+        nn.init.zeros_(self.linear_b_v.weight)
+
+    def forward(self, x):
+        dim = self.in_features
+        qkv = linear(x, self)
+        new_q = linear(linear(x, self.linear_a_q), self.linear_b_q)
+        new_v = linear(linear(x, self.linear_a_v), self.linear_b_v)
+        return torch.cat([qkv[..., :dim] + new_q, qkv[..., dim:-dim],
+                          qkv[..., -dim:] + new_v], dim=-1)
+
+
 class Attention(nn.Module):
     """Multi-head attention with decomposed relative position bias over a
     (H, W) token grid (a window, or the whole grid in global blocks). With
     use_flash and H * W >= 128 it runs through K5 over the folded q and k;
-    otherwise the bias is added to the score matrix."""
+    otherwise the bias is added to the score matrix. lora_rank > 0 makes
+    qkv a LoRAQKV."""
 
-    def __init__(self, dim: int, num_heads: int, input_size: tuple, use_flash: bool = True):
+    def __init__(self, dim: int, num_heads: int, input_size: tuple, use_flash: bool = True,
+                 lora_rank: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.lora_rank = lora_rank
         head_dim = dim // num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = LoRAQKV(dim, lora_rank) if lora_rank > 0 else nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, head_dim))
         self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, head_dim))
@@ -119,7 +151,8 @@ class Attention(nn.Module):
         B, H, W, C = x.shape
         nh = self.num_heads
         hd = C // nh
-        qkv = linear(x.reshape(B, H * W, C), self.qkv)
+        h = x.reshape(B, H * W, C)
+        qkv = self.qkv(h) if self.lora_rank > 0 else linear(h, self.qkv)
         q, k, v = qkv.reshape(B, H * W, 3, nh, hd).permute(2, 0, 3, 1, 4)
         Rh = rel_pos_table(H, self.rel_pos_h).to(x.dtype)
         Rw = rel_pos_table(W, self.rel_pos_w).to(x.dtype)
@@ -139,13 +172,14 @@ class Attention(nn.Module):
 
 
 class MLPBlock(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, act=F.gelu):
         super().__init__()
         self.lin1 = nn.Linear(dim, hidden)
         self.lin2 = nn.Linear(hidden, dim)
+        self.act = act
 
     def forward(self, x):
-        return linear(F.gelu(linear(x, self.lin1)), self.lin2)
+        return linear(self.act(linear(x, self.lin1)), self.lin2)
 
 
 def window_partition(x, ws: int):
@@ -171,12 +205,13 @@ def window_unpartition(windows, ws: int, pad_hw, hw):
 class Block(nn.Module):
     """LN -> (windowed) attention -> residual -> LN -> MLP -> residual."""
 
-    def __init__(self, dim, num_heads, mlp_ratio, window_size, input_size, use_flash=True):
+    def __init__(self, dim, num_heads, mlp_ratio, window_size, input_size, use_flash=True,
+                 lora_rank=0):
         super().__init__()
         self.window_size = window_size
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         attn_size = (window_size, window_size) if window_size > 0 else input_size
-        self.attn = Attention(dim, num_heads, attn_size, use_flash)
+        self.attn = Attention(dim, num_heads, attn_size, use_flash, lora_rank)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
 
@@ -211,10 +246,11 @@ class ImageEncoderViT(nn.Module):
     def __init__(self, img_size=1024, patch_size=16, embed_dim=768, depth=12,
                  num_heads=12, mlp_ratio=4.0, out_chans=256, window_size=14,
                  global_attn_indexes=(2, 5, 8, 11), use_flash=True, dtype=torch.float32,
-                 remat=False):
+                 remat=False, lora_rank=0):
         super().__init__()
         self.img_size = img_size
         self.remat = remat
+        self.lora_rank = lora_rank
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.window_size = window_size
@@ -225,7 +261,8 @@ class ImageEncoderViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, grid, grid, embed_dim))
         self.blocks = nn.ModuleList([
             Block(embed_dim, num_heads, mlp_ratio,
-                  0 if i in self.global_attn_indexes else window_size, (grid, grid), use_flash)
+                  0 if i in self.global_attn_indexes else window_size, (grid, grid), use_flash,
+                  lora_rank)
             for i in range(depth)
         ])
         self.neck = nn.Sequential(

@@ -2,22 +2,27 @@
 Adam per parameter group, the train step with gradient clipping and the
 non-finite guard, the eval step with streaming metrics, and checkpoints.
 
-  encoder             BASE_LR * ENCODER_LR_FACTOR, or frozen (FREEZE_ENCODER)
-  decoder, toponet    BASE_LR
+  encoder             BASE_LR * ENCODER_LR_FACTOR, or frozen (FREEZE_ENCODER
+                      or ENCODER_LORA)
+  encoder_lora        the LoRA adapters: BASE_LR with ENCODER_LORA
+  decoder, toponet    BASE_LR (decoder: the map decoder or SAM's)
   schedule            x0.1 once 9 * steps_per_epoch updates were applied
                       (MultiStepLR at epoch 9; optax's piecewise constant
                       schedule over Adam's own count)
 
 A frozen encoder keeps requires_grad and stays out of the optimizer: its
 gradients are computed and count in grad_norm and in clipping, as the JAX
-package's optax.set_to_zero group does. Parameters stay fp32 (the model
+package's optax.set_to_zero group does. A trainable parameter that the
+loss does not reach (the SAM decoder's iou head, computed and dropped as in
+JAX) gets a zero gradient, as optax gives every leaf one, so Adam's step
+counts stay equal across parameters. Parameters stay fp32 (the model
 casts to the compute dtype at use), so gradients and Adam's moments are
 fp32. With FUSED_ENCODER_TRAIN the training forward runs the encoder
 through the K6 wrappers (_fused_forward: K1-K4 forward, plain-PyTorch
 recompute backward); the eval step and the validation panels stay on the
 eager model, as the JAX eval step stays on the flax model. REMAT_ENCODER
-checkpoints each encoder block on both paths. Not ported yet: LoRA and the
-SAM decoder.
+checkpoints each encoder block on both paths; it refuses LoRA and the SAM
+decoder, as the JAX harness does.
 """
 
 from __future__ import annotations
@@ -36,10 +41,11 @@ from sam_road_tpu_torch.utils.viz import save_val_visualizations
 
 
 def param_group(name: str) -> str:
-    """Optimizer group of a parameter, by its top-level module."""
+    """Optimizer group of a parameter, by its top-level module (the JAX
+    harness's _param_group)."""
     top = name.split(".", 1)[0]
     if top == "image_encoder":
-        return "encoder"
+        return "encoder_lora" if ("linear_a_" in name or "linear_b_" in name) else "encoder"
     if top == "topo_net":
         return "toponet"
     return "decoder"
@@ -47,17 +53,24 @@ def param_group(name: str) -> str:
 
 def build_optimizer(config, model) -> torch.optim.Adam:
     """Adam (b1 0.9, b2 0.999, eps 1e-8, as optax.adam) with one group per
-    trained module group; each group keeps its unscheduled rate in
-    "initial_lr" (apply_update schedules it)."""
-    if config.ENCODER_LORA:
-        raise NotImplementedError("ENCODER_LORA is not ported yet")
+    trained module group of param_group: encoder at BASE_LR *
+    ENCODER_LR_FACTOR unless FREEZE_ENCODER or ENCODER_LORA freeze it,
+    encoder_lora at BASE_LR with ENCODER_LORA (else frozen), decoder and
+    toponet at BASE_LR. Frozen groups stay out of the optimizer. Each group
+    keeps its unscheduled rate in "initial_lr" (apply_update schedules
+    it)."""
     base_lr = float(config.BASE_LR)
-    lrs = {"encoder": base_lr * float(config.ENCODER_LR_FACTOR), "decoder": base_lr,
-           "toponet": base_lr}
+    lrs = {"encoder": base_lr * float(config.ENCODER_LR_FACTOR), "encoder_lora": base_lr,
+           "decoder": base_lr, "toponet": base_lr}
+    frozen = set()
+    if config.FREEZE_ENCODER or config.ENCODER_LORA:
+        frozen.add("encoder")
+    if not config.ENCODER_LORA:
+        frozen.add("encoder_lora")
     groups: dict = {}
     for name, p in model.named_parameters():
         group = param_group(name)
-        if group == "encoder" and config.FREEZE_ENCODER:
+        if group in frozen:
             continue
         groups.setdefault(group, []).append(p)
     return torch.optim.Adam(
@@ -153,6 +166,9 @@ def make_train_step(config, model, optimizer, steps_per_epoch: int):
         loss, aux = loss_fn(model, materialize_batch(batch, device), use_focal,
                             deterministic=False, generator=generator, fused=fused, remat=remat)
         loss.backward()
+        for p in params:
+            if p.grad is None and p.requires_grad:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params if p.grad is not None]
         grad_norm = torch.nn.utils.get_total_norm(grads)
         if clip_norm > 0.0:

@@ -144,7 +144,7 @@ def _toponet_inputs(seed, B=2, P=12, S=5, K=4):
     return points, feats, pairs, valid
 
 
-@pytest.mark.parametrize("version", ["normal", "no_offset"])
+@pytest.mark.parametrize("version", ["normal", "no_offset", "no_transformer", "no_tgt_features"])
 def test_toponet_matches_flax_including_all_invalid_groups(version):
     points, feats, pairs, valid = _toponet_inputs(22)
     jnet = JTopoNet(version=version, dtype=jnp.float32)
@@ -195,6 +195,14 @@ def test_import_and_forward_load_neither_jax_nor_the_jax_package():
         "with torch.no_grad():\n"
         "    masks, emb = m.infer_masks_and_features(torch.zeros(1, 64, 64, 3), encoder_forward_fused)\n"
         "assert masks.shape == (1, 64, 64, 2) and emb.shape == (1, 4, 4, 256)\n"
+        "lora = load_config(overrides=dict(cfg.to_dict(), USE_SAM_DECODER=True, ENCODER_LORA=True,"
+        " LORA_RANK=2))\n"
+        "m = init_random(SAMRoad.from_config(lora), 0)\n"
+        "assert m.use_sam_decoder and m.lora_rank == 2\n"
+        "with torch.no_grad():\n"
+        "    masks, emb = m.infer_masks_and_features(torch.zeros(1, 64, 64, 3))\n"
+        "assert masks.shape == (1, 64, 64, 2) and emb.shape == (1, 4, 4, 256)\n"
+        "engine = TiledInferenceEngine(lora, m, 'cpu')\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'sam_road_tpu'))\n"
         "print('LOADED', bad)\n"
         "assert not bad, bad\n"
@@ -207,3 +215,43 @@ def test_import_and_forward_load_neither_jax_nor_the_jax_package():
                          cwd=root, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "LOADED []" in out.stdout
+
+
+def _config_switches():
+    """The distinct (USE_SAM_DECODER, ENCODER_LORA, LORA_RANK,
+    TOPONET_VERSION) of the files in configs/, read with the port's
+    reader, each with the first file that holds it."""
+    import glob
+    import os
+
+    from sam_road_tpu_torch.config import read_flat_yaml
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    seen = {}
+    for path in sorted(glob.glob(os.path.join(root, "configs", "*.yaml"))):
+        cfg = load_config(path)
+        key = (bool(cfg.USE_SAM_DECODER), bool(cfg.ENCODER_LORA), int(cfg.LORA_RANK),
+               str(cfg.TOPONET_VERSION))
+        seen.setdefault(key, read_flat_yaml(path))
+    return seen
+
+
+CONFIG_SWITCHES = _config_switches()
+
+
+@pytest.mark.parametrize("switches", list(CONFIG_SWITCHES), ids=lambda k: "-".join(map(str, k)))
+def test_every_configs_switches_build_the_jax_models_parameters(switches):
+    """Each combination of the model switches that a file in configs/
+    holds builds through SAMRoad.from_config at vit_t / 64 px, with the
+    state-dict names and shapes of from_flax_params of JAX's init_params
+    for the same config (its shapes, by jax.eval_shape)."""
+    over = dict(CONFIG_SWITCHES[switches], **SMALL)
+    model = SAMRoad.from_config(load_config(overrides=over))
+    cfg = jload_config(overrides=over)
+    shapes = jax.eval_shape(lambda: init_params(cfg))
+    want = from_flax_params(jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes))
+    got = model.state_dict()
+    assert {k: tuple(v.shape) for k, v in got.items()} == {k: tuple(v.shape)
+                                                           for k, v in want.items()}
+    assert model.use_sam_decoder == switches[0]
+    assert model.lora_rank == (switches[2] if switches[1] else 0)
