@@ -26,9 +26,15 @@ the model against its fp32 plain version, a region, training steps, and
 the training, calibration and inference CLIs from a SAM-format checkpoint
 with the decoder's keys; phase 18 runs a region through
 configs/toponet_vitl_256.yaml and configs/toponet_vitb_1024.yaml (K1-K4),
-which never ran on the card before. Every kernel's time sits beside its
-bound (bytes or operations at the card's peak rates) and, where one
-PyTorch call computes the same function, that call's time.
+which never ran on the card before; phase 19 generates SpaceNet- and
+Cityscale-format ground truth, makes its label masks with the preparation
+CLI (checked against the graphs), runs the label debugger, trains
+configs/toponet_vitb_256_spacenet.yaml at full width on the prepared
+labels (K5 at its window and 256-token global shapes first), infers with
+the trained checkpoint (K1-K4, K3 at 256 tokens) and triages the result.
+Every kernel's time sits beside its bound (bytes or operations at the
+card's peak rates) and, where one PyTorch call computes the same function,
+that call's time.
 
     python3 chip_smoke.py
 
@@ -227,6 +233,18 @@ T913_LIBRARY = {  # kernel -> the PyTorch expression timed as its library_ms
     "oversized_sublane_block": "F.pad(x, cols).view(B, R, nJ, win, C).sum(3)",
     "batched_nt": "torch.bmm(a, b.transpose(1, 2))",
 }
+# phase 19: labels to a trained model. SPACENET_CONFIG as it stands (ViT-B
+# 256 px, batch 64, bf16, FLASH_ATTENTION: the eager encoder through K5 in
+# training, FUSED_ENCODER in inference) over a generated SpaceNet-format
+# tree of SPACENET_SPLIT tiles; its launches a forward
+SPACENET_CONFIG = "configs/toponet_vitb_256_spacenet.yaml"
+SPACENET_SPLIT = {"train": 6, "validation": 2, "test": 4}
+# enough steps that the loader's producer threads still run after its
+# buffer (4 in its queue, one in each of 4 workers' hands) is spent
+SPACENET_STEPS = 16
+SPACENET_PER_FORWARD = {"fused_attention": 12}
+SPACENET_INFER_PER_BATCH = {"ln_dense": 12, "window_attention_rows_grid": 8,
+                            "attention_relpos_rows": 4, "proj_ln_mlp_residual": 12}
 BLOCK_LOOP = dict(iters=10, reps=3)
 PROBE_REPS = 20
 GROUP_WINDOW_LOOP = dict(iters=10, rounds=4)
@@ -551,10 +569,12 @@ def with_product_alone(row: dict, name: str, args) -> str:
             f"{row['product_alone_cublas_ms']:.4f} ms")
 
 
-def check_kernels(B: int, dev: str = "cuda"):
-    """Phase 3: each kernel against its plain version at the bench shapes;
-    K2's and K3's rows also carry the profiler's kernel time and the
-    bound's share."""
+def check_kernels(B: int, dev: str = "cuda", grid: int = 32):
+    """Each of K1-K4 against its plain version at ViT-B's widths for B
+    patches of a grid x grid token grid (K2's padded to whole 14 x 14
+    windows): phase 3 at the bench's 32 x 32, phase 19 at the SpaceNet
+    config's 16 x 16. K2's and K3's rows also carry the profiler's kernel
+    time and the bound's share."""
     import torch
 
     from sam_road_tpu_torch.ops import attention, fused_block, fused_ln
@@ -565,7 +585,7 @@ def check_kernels(B: int, dev: str = "cuda"):
     def rn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
 
-    C, heads, hd, grid, win = 768, 12, 64, 32, 14
+    C, heads, hd, win = 768, 12, 64, 14
     M = B * grid * grid
     pad = (win - grid % win) % win
     gp = grid + pad
@@ -1151,13 +1171,13 @@ def run_cli(data_root: str, work: str, name: str, overrides: dict, steps: int,
                 step_s=statistics.mean(steady), wait_s=statistics.mean(waits), ckpt=ckpt)
 
 
-def clean_step_seconds(trainer, seed: int):
+def clean_step_seconds(trainer, seed: int, geometry: dict = TRAIN):
     """Seconds per step of `trainer` without the loader: 3 more steps over
-    train_batches (the same geometry), the mean of the last 2. Producer
+    train_batches at its `geometry`, the mean of the last 2. Producer
     threads hold the GIL while they run, which slows the host side of a
     step the loader feeds."""
     start = len(trainer.history)
-    trainer.train_epoch(train_batches(3, seed), epoch=1)
+    trainer.train_epoch(train_batches(3, seed, geometry), epoch=1)
     return statistics.mean(h["seconds"] for h in trainer.history[start + 1:])
 
 
@@ -1936,6 +1956,456 @@ def run_config_regions(seed: int, dev: str = "cuda"):
     return out
 
 
+def street_graph(rng, size: int, to_key, spacing=(70, 100), pieces: int = 3) -> dict:
+    """A ground-truth road graph over a size px tile as a sat2graph dict
+    (to_key: image (x, y) -> its (r, c) key): a street grid at a random
+    spacing and offset whose block edges are split into `pieces` (degree-2
+    nodes) and about 15 % dropped (degree-3 junctions, dead ends), two
+    diagonal avenues across it (their points joining the grid only where
+    they land on it), a dead-end spur per grid row, and a road running off
+    the tile's right edge."""
+    adj = {}
+
+    def road(points):
+        for a, b in zip(points[:-1], points[1:]):
+            ka, kb = to_key(*a), to_key(*b)
+            if ka != kb:
+                adj.setdefault(ka, []).append(kb)
+                adj.setdefault(kb, []).append(ka)
+
+    def split(a, b, n=pieces):
+        return [(round(a[0] + (b[0] - a[0]) * i / n), round(a[1] + (b[1] - a[1]) * i / n))
+                for i in range(n + 1)]
+
+    step = int(rng.integers(*spacing))
+    lines = list(range(int(rng.integers(step // 4, step // 2)), size - step // 4, step))
+    for i, y in enumerate(lines):
+        for j, x in enumerate(lines):
+            if j + 1 < len(lines) and rng.random() > 0.15:
+                road(split((x, y), (lines[j + 1], y)))
+            if i + 1 < len(lines) and rng.random() > 0.15:
+                road(split((x, y), (x, lines[i + 1])))
+        x = lines[int(rng.integers(0, len(lines)))]
+        road(split((x, y), (x + step // 3, y + step // 5), 2))  # a dead-end spur
+    first, last = lines[0], lines[-1]
+    road(split((first, lines[1]), (last, lines[-2]), 4 * pieces))
+    road(split((lines[1], last), (lines[-2], first), 4 * pieces))
+    road(split((last, lines[1]), (size, lines[1]), 1))
+    return adj
+
+
+def degrees_xy(graph: dict, to_xy):
+    """(x, y) node -> degree of the undirected graph, each edge once."""
+    edges = {tuple(sorted((to_xy(a), to_xy(b)))) for a, v in graph.items() for b in v
+             if to_xy(a) != to_xy(b)}
+    deg = {}
+    for a, b in edges:
+        deg[a] = deg.get(a, 0) + 1
+        deg[b] = deg.get(b, 0) + 1
+    return deg, edges
+
+
+def spacenet_xy(n):
+    """A SpaceNet ground-truth key (r, c) -> image (x, y) = (c, 400 - r)."""
+    return int(n[1]), 400 - int(n[0])
+
+
+def cityscale_xy(n):
+    """A Cityscale ground-truth key (r, c) -> image (x, y) = (c, r)."""
+    return int(n[1]), int(n[0])
+
+
+def write_tile(path: str, graph: dict, size: int, to_xy, rng):
+    """A size px RGB tile for `graph`: noise in [70, 190) with the roads
+    drawn a third as bright (every value in [23, 190))."""
+    from sam_road_tpu_torch.data.png import write_png
+    from sam_road_tpu_torch.utils.viz import draw_lines
+
+    rgb = rng.integers(70, 190, (size, size, 3), dtype=np.uint8)
+    road = np.zeros((size, size), np.uint8)
+    _, edges = degrees_xy(graph, to_xy)
+    ends = np.array(sorted(edges), np.int64).reshape(-1, 2, 2)
+    draw_lines(road, ends[:, 0], ends[:, 1], 1, 7)
+    rgb[road > 0] //= 3
+    write_png(path, rgb)
+
+
+def write_spacenet_tree(root: str, seed: int) -> dict:
+    """A SpaceNet-format dataset under root/spacenet: SPACENET_SPLIT tiles of
+    400 px named SYN_<i>, data_split.json, RGB_1.0_meter/<tile>__rgb.png and
+    __gt_graph.p (keys (r, c) with image (x, y) = (c, 400 - r)); no
+    processed/. Returns tile -> graph."""
+    base = os.path.join(root, "spacenet")
+    sat = os.path.join(base, "RGB_1.0_meter")
+    os.makedirs(sat, exist_ok=True)
+    names = iter(f"SYN_{i}" for i in range(sum(SPACENET_SPLIT.values())))
+    split = {k: [next(names) for _ in range(n)] for k, n in SPACENET_SPLIT.items()}
+    with open(os.path.join(base, "data_split.json"), "w") as f:
+        json.dump(split, f)
+    rng = np.random.default_rng(seed)
+    graphs = {}
+    for tile in sum(split.values(), []):
+        graphs[tile] = street_graph(rng, 400, lambda x, y: (400 - y, x))
+        with open(os.path.join(sat, f"{tile}__gt_graph.p"), "wb") as f:
+            pickle.dump(graphs[tile], f)
+        write_tile(os.path.join(sat, f"{tile}__rgb.png"), graphs[tile], 400, spacenet_xy, rng)
+    return graphs
+
+
+def write_cityscale_tree(root: str, seed: int, tiles) -> dict:
+    """Cityscale-format ground truth under root/cityscale/20cities for the
+    partition indices `tiles`: region_<i>_refine_gt_graph.p over the full
+    2048 px (keys (r, c) = (y, x)) and region_<i>_sat.png; no processed/.
+    Returns tile -> graph."""
+    sat = os.path.join(root, "cityscale", "20cities")
+    os.makedirs(sat, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    graphs = {}
+    for tile in tiles:
+        graphs[tile] = street_graph(rng, 2048, lambda x, y: (y, x), spacing=(250, 330), pieces=5)
+        with open(os.path.join(sat, f"region_{tile}_refine_gt_graph.p"), "wb") as f:
+            pickle.dump(graphs[tile], f)
+        write_tile(os.path.join(sat, f"region_{tile}_sat.png"), graphs[tile], 2048,
+                   cityscale_xy, rng)
+    return graphs
+
+
+def check_masks(processed: str, graphs: dict, size: int, to_xy) -> dict:
+    """cli.prepare's masks against their graphs: both PNGs of every tile,
+    grayscale size x size; a keypoint pixel at every node inside the tile
+    whose degree is not 2 and none at a degree-2 node farther than the
+    disc's radius + 1 from every other kind of node; a road pixel at every
+    edge's midpoint inside the tile. Returns counts of what was checked."""
+    from sam_road_tpu_torch.data.label_gen import KEYPOINT_RADIUS
+    from sam_road_tpu_torch.data.png import read_png
+
+    counts = dict(tiles=0, keypoints=0, degree2_clear=0, midpoints=0)
+    for tile, graph in graphs.items():
+        kp = read_png(os.path.join(processed, f"keypoint_mask_{tile}.png"))
+        road = read_png(os.path.join(processed, f"road_mask_{tile}.png"))
+        if kp.shape != (size, size) or road.shape != (size, size):
+            raise SystemExit(f"tile {tile}: masks {kp.shape} {road.shape}, expected {size} px")
+        deg, edges = degrees_xy(graph, to_xy)
+        inside = {p: d for p, d in deg.items() if 0 <= p[0] < size and 0 <= p[1] < size}
+        junctions = np.array([p for p, d in deg.items() if d != 2], np.int64).reshape(-1, 2)
+        for (x, y), d in inside.items():
+            if d != 2:
+                if kp[y, x] != 255:
+                    raise SystemExit(f"tile {tile}: no keypoint at degree-{d} node {(x, y)}")
+                counts["keypoints"] += 1
+            elif np.abs(junctions - (x, y)).max(1).min() > KEYPOINT_RADIUS + 1:
+                if kp[y, x] != 0:
+                    raise SystemExit(f"tile {tile}: a keypoint at degree-2 node {(x, y)}")
+                counts["degree2_clear"] += 1
+        for (x0, y0), (x1, y1) in edges:
+            xm, ym = (x0 + x1) // 2, (y0 + y1) // 2
+            if 0 <= xm < size and 0 <= ym < size:
+                if road[ym, xm] != 255:
+                    raise SystemExit(f"tile {tile}: no road at the midpoint of {(x0, y0)}-{(x1, y1)}")
+                counts["midpoints"] += 1
+        counts["tiles"] += 1
+    return counts
+
+
+def run_prepare(root: str, dataset: str, graphs: dict, size: int, to_xy) -> float:
+    """`python -m sam_road_tpu_torch.cli.prepare`, in process, then
+    check_masks; returns its host seconds per tile."""
+    from sam_road_tpu_torch.cli import prepare
+
+    t = time.perf_counter()
+    tiles = prepare.main(["--dataset", dataset, "--data_root", root])
+    seconds = time.perf_counter() - t
+    processed = os.path.join(root, dataset, "processed")
+    if sorted(map(str, tiles)) != sorted(map(str, graphs)) or sorted(
+            os.listdir(processed)) != sorted(f"{kind}_mask_{t}.png" for t in graphs
+                                             for kind in ("keypoint", "road")):
+        raise SystemExit(f"cli.prepare {dataset}: wrote {sorted(os.listdir(processed))}")
+    counts = check_masks(processed, graphs, size, to_xy)
+    print(f"cli.prepare {dataset}: {len(tiles)} tiles of {size} px in {seconds:.3f} s "
+          f"({seconds / len(tiles):.4f} s per tile, host clock); checked {counts}", flush=True)
+    return seconds / len(tiles)
+
+
+def run_debug_labels(root: str, work: str, num: int = 16):
+    """`python -m sam_road_tpu_torch.cli.debug_labels` with SPACENET_CONFIG
+    over the SpaceNet tree: `num` PNGs, each readable by read_png and
+    holding drawn pixels (a channel outside the tiles' [23, 190))."""
+    from sam_road_tpu_torch.cli import debug_labels
+    from sam_road_tpu_torch.data.png import read_png
+
+    out = os.path.join(work, "debug_labels")
+    t = time.perf_counter()
+    paths = debug_labels.main(["--config", SPACENET_CONFIG, "--data_root", root, "--out", out,
+                               "--num", str(num)])
+    seconds = time.perf_counter() - t
+    drawn = []
+    for path in paths:
+        img = read_png(path)
+        drawn.append(int(((img < 23) | (img >= 190)).any(-1).sum()))
+    print(f"cli.debug_labels: {len(paths)} PNGs in {seconds:.2f} s, drawn pixels each "
+          f"{drawn}", flush=True)
+    if sorted(os.listdir(out)) != sorted(f"viz_{i}.png" for i in range(num)) or not all(drawn):
+        raise SystemExit(f"cli.debug_labels: missing or empty images: {sorted(os.listdir(out))}")
+
+
+def spacenet_values(extra: dict | None = None) -> dict:
+    """SPACENET_CONFIG as it stands, one epoch (`extra` on top)."""
+    from sam_road_tpu_torch.config import read_flat_yaml
+
+    values = read_flat_yaml(SPACENET_CONFIG)
+    values.update(TRAIN_EPOCHS=1)
+    values.update(extra or {})
+    return values
+
+
+def run_spacenet_train(root: str, work: str, dev: str = "cuda", extra: dict | None = None):
+    """Phase 19c: `python -m sam_road_tpu_torch.cli.train --dev_run`, in
+    process, with SPACENET_CONFIG over the prepared SpaceNet tree,
+    SPACENET_STEPS steps from init_random seed 0: every loss finite, no step
+    skipped, the checkpoint written, K5 launched SPACENET_PER_FORWARD times
+    a forward (each step's and the two validation forwards); then the step
+    without a loader (clean_step_seconds). Returns the launches, the
+    checkpoint and the times."""
+    import torch
+
+    from sam_road_tpu_torch.cli import train
+    from sam_road_tpu_torch.config import write_flat_yaml
+    from sam_road_tpu_torch.ops import _build
+
+    cfg = os.path.join(work, "spacenet.yaml")
+    write_flat_yaml(cfg, spacenet_values(extra))
+    out = os.path.join(work, "spacenet_train")
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t = time.time()
+    trainer = train.main(["--config", cfg, "--dev_run", "--steps_per_epoch", str(SPACENET_STEPS),
+                          "--device", dev, "--data_root", root, "--output_dir", out])
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    hist = list(trainer.history)
+    step_s = statistics.mean(h["seconds"] for h in hist[1:])
+    wait_s = statistics.mean(h["data_seconds"] for h in hist[1:])
+    cfg_run = trainer.config
+    clean_s = clean_step_seconds(trainer, 0, dict(
+        PATCH_SIZE=int(cfg_run.PATCH_SIZE), BATCH_SIZE=int(cfg_run.BATCH_SIZE),
+        TOPO_SAMPLE_NUM=int(cfg_run.TOPO_SAMPLE_NUM),
+        MAX_NEIGHBOR_QUERIES=int(cfg_run.MAX_NEIGHBOR_QUERIES)))
+    ckpt = os.path.join(out, "ckpt_epoch_0.pt")
+    print(f"cli.train spacenet: {len(hist)} steps at batch {cfg_run.BATCH_SIZE}, "
+          f"{cfg_run.PATCH_SIZE} px; seconds per step (host clock, Trainer.train_epoch): "
+          f"{', '.join(f'{h['seconds']:.4f}' for h in hist)}; after the first, through the "
+          f"CLI's loader: mean {step_s:.4f} s, loader wait {wait_s:.4f} s; without a loader "
+          f"{clean_s:.4f} s; peak memory "          f"allocated {peak / 2 ** 30:.3f} GiB; losses "
+          f"{', '.join(f'{h['loss']:.4f}' for h in hist)}; run {wall:.1f} s; launches "
+          f"{launches}", flush=True)
+    if len(hist) != SPACENET_STEPS or not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                                              for h in hist):
+        raise SystemExit("cli.train spacenet: a loss or grad_norm is not finite, or steps missing")
+    if any(h["skipped"] for h in hist):
+        raise SystemExit("cli.train spacenet: a training step was skipped")
+    if not os.path.exists(ckpt):
+        raise SystemExit("cli.train spacenet: no checkpoint")
+    want = {k: n * (SPACENET_STEPS + 2) for k, n in SPACENET_PER_FORWARD.items()}
+    if launches != want:
+        raise SystemExit(f"cli.train spacenet: launches {launches}, expected {want}")
+    return dict(launches=launches, ckpt=ckpt, cfg=cfg, step_s=step_s, wait_s=wait_s,
+                clean_s=clean_s, peak=peak)
+
+
+def sat2graph_rc(graph: dict, size: int = 400):
+    """A SpaceNet-frame sat2graph dict -> (normalised image (r, c) nodes,
+    edges [E, 2]): the frame's (r', c') is the image's (size - r', c)."""
+    from sam_road_tpu_torch.graph.convert import convert_from_sat2graph_format
+
+    nodes, edges = convert_from_sat2graph_format(graph)
+    rc = np.stack([size - nodes[:, 0], nodes[:, 1]], 1).astype(np.float64) / size
+    return rc, np.asarray(edges, np.int64).reshape(-1, 2)
+
+
+def run_spacenet_infer(root: str, work: str, trained: dict, dev: str = "cuda"):
+    """Phase 19d: `python -m sam_road_tpu_torch.cli.infer`, in process, of
+    19c's checkpoint over the SpaceNet test tiles (SPACENET_CONFIG's
+    FUSED_ENCODER: K1-K4), thresholds calibrated by quantile on the first
+    tile as run_infer_cli does (TOPO_THRESHOLD too: after a few steps
+    TopoNet scores no pair above the config's), with the exact launches per
+    batch and an edge in every tile's graph; then
+    `python -m sam_road_tpu_torch.cli.triage` over an inference_results
+    pickle of its graphs against the ground truth. Returns the launches."""
+    import random
+
+    import torch
+    from scipy.spatial import cKDTree
+
+    from sam_road_tpu_torch.cli import infer, triage
+    from sam_road_tpu_torch.config import load_config, read_flat_yaml, write_flat_yaml
+    from sam_road_tpu_torch.data.dataset import read_rgb_img
+    from sam_road_tpu_torch.data.partitions import get_patch_info_one_img
+    from sam_road_tpu_torch.data.png import read_png
+    from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
+    from sam_road_tpu_torch.models.convert import load_weights
+    from sam_road_tpu_torch.ops import _build
+
+    values = read_flat_yaml(trained["cfg"])
+    cfg = load_config(overrides=values)
+    sat = os.path.join(root, "spacenet", "RGB_1.0_meter")
+    with open(os.path.join(root, "spacenet", "data_split.json")) as f:
+        test_ids = json.load(f)["test"]
+    model, _ = load_weights(trained["ckpt"], cfg)
+    engine = TiledInferenceEngine(cfg, model, dev)
+    engine.config.ITSC_THRESHOLD = engine.config.ROAD_THRESHOLD = 1.0
+    _, _, kp, road = engine.infer_one_img(read_rgb_img(os.path.join(sat, f"{test_ids[0]}__rgb.png")))
+    values["ITSC_THRESHOLD"] = engine.config.ITSC_THRESHOLD = float(np.quantile(kp / 255.0, 0.99))
+    values["ROAD_THRESHOLD"] = engine.config.ROAD_THRESHOLD = float(np.quantile(road / 255.0, 0.92))
+    # TOPO_THRESHOLD: the median of the same tile's pair scores, less half
+    # a step of their int16 fixed point, so a pair scoring it on every
+    # observation is kept
+    scores, scores_q = [], engine._scores_q
+
+    def record(feats, points, pairs, valid):
+        q = scores_q(feats, points, pairs, valid)
+        scores.append(q[..., 0][valid].float().cpu().numpy() / 32767.0)
+        return q
+
+    engine._scores_q = record
+    engine.infer_one_img(read_rgb_img(os.path.join(sat, f"{test_ids[0]}__rgb.png")))
+    values["TOPO_THRESHOLD"] = float(np.quantile(np.concatenate(scores), 0.5)) - 0.5 / 32767.0
+    cfg_path = os.path.join(work, "spacenet_infer.yaml")
+    write_flat_yaml(cfg_path, values)
+    del model, engine
+    gc.collect()
+    p, m = cfg.PATCH_SIZE, cfg.SAMPLE_MARGIN
+    n_patches = len(get_patch_info_one_img(0, 400, m, p, cfg.INFER_PATCHES_PER_EDGE))
+    batches = len(test_ids) * -(-n_patches // cfg.INFER_BATCH_SIZE)
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI writes ./save/<output_dir>
+    try:
+        _build.reset_launches()
+        t = time.time()
+        out = infer.main(["--config", cfg_path, "--checkpoint", trained["ckpt"], "--data_root",
+                          root, "--output_dir", "spacenet", "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = dict(_build.launches)
+        out = os.path.join(work, out)
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(out, "inference_time.txt")) as f:
+        loop_s = float(f.read().split(" in ")[-1].split(" seconds")[0])
+    want = {k: n * batches for k, n in SPACENET_INFER_PER_BATCH.items()}
+    graphs = {}
+    for tile in test_ids:
+        with open(os.path.join(out, "graph", f"{tile}.p"), "rb") as f:
+            graphs[tile] = pickle.load(f)
+    n_nodes = [len(g) for g in graphs.values()]
+    n_edges = [sum(len(v) for v in g.values()) // 2 for g in graphs.values()]
+    print(f"cli.infer spacenet: {len(test_ids)} tiles in {loop_s:.3f} s ({loop_s / len(test_ids):.3f} "
+          f"s per tile, the CLI's inference_time.txt), run with loading {wall:.1f} s; "
+          f"{batches} batches of {cfg.INFER_BATCH_SIZE}; ITSC_THRESHOLD "
+          f"{values['ITSC_THRESHOLD']:.4f} ROAD_THRESHOLD {values['ROAD_THRESHOLD']:.4f} "
+          f"TOPO_THRESHOLD {values['TOPO_THRESHOLD']:.5f} (of {sum(map(len, scores))} pair "
+          f"scores); nodes "
+          f"{n_nodes} edges {n_edges}; launches {launches}", flush=True)
+    if launches != want:
+        raise SystemExit(f"cli.infer spacenet: launches {launches}, expected {want}")
+    if not all(n_nodes) or not all(n_edges):
+        raise SystemExit("cli.infer spacenet: a tile's graph has no node or no edge")
+
+    # The triage input, which no CLI writes: one record per test tile, its
+    # cli.infer graph and its ground truth as normalised image (r, c) nodes,
+    # and as smd the symmetric mean distance between the two node sets
+    # (each node's distance to the other set's nearest, averaged each way,
+    # over the tile's side); triage keeps every record above 0.
+    records = []
+    for tile, graph in graphs.items():
+        with open(os.path.join(sat, f"{tile}__gt_graph.p"), "rb") as f:
+            gt_nodes, gt_edges = sat2graph_rc(pickle.load(f))
+        pred_nodes, pred_edges = sat2graph_rc(graph)
+        smd = 0.5 * (cKDTree(gt_nodes).query(pred_nodes)[0].mean()
+                     + cKDTree(pred_nodes).query(gt_nodes)[0].mean())
+        records.append(dict(img_path=os.path.join(sat, f"{tile}__rgb.png"),
+                            pred_nodes=pred_nodes, pred_edges=pred_edges, gt_nodes=gt_nodes,
+                            gt_edges=gt_edges, smd=float(smd)))
+    results = os.path.join(work, "inference_results.pickle")
+    with open(results, "wb") as f:
+        pickle.dump(records, f)
+    triage_dir = os.path.join(work, "triage")
+    random.seed(0)
+    t = time.perf_counter()
+    paths = triage.main(["--results", results, "--output_dir", triage_dir, "--sample_num",
+                         str(len(records)), "--smd_threshold", "0"])
+    seconds = time.perf_counter() - t
+    names = sorted(f"smd_{r['smd']:.6f}_{os.path.basename(r['img_path'])}" for r in records
+                   if r["smd"] > 0)
+    shapes = {read_png(path).shape for path in paths}
+    print(f"cli.triage: {len(paths)} images in {seconds:.2f} s, shapes {shapes}, smd "
+          f"{[round(r['smd'], 4) for r in records]}", flush=True)
+    if sorted(os.listdir(triage_dir)) != names or shapes != {(512, 2 * 512, 3)}:
+        raise SystemExit(f"cli.triage: wrote {sorted(os.listdir(triage_dir))}, expected {names}")
+    return dict(launches=launches, seconds_per_tile=loop_s / len(test_ids))
+
+
+def run_labels_to_model(seed: int, dev: str = "cuda", extra: dict | None = None):
+    """Phase 19: SpaceNet- and Cityscale-format ground truth -> cli.prepare
+    -> cli.debug_labels -> cli.train (SPACENET_CONFIG, full width) ->
+    cli.infer -> cli.triage. Returns K5's readings at the config's
+    training shapes, K1-K4's at its inference shapes and the launches of
+    the training and inference runs."""
+    from sam_road_tpu_torch.data.partitions import cityscale_data_partition
+
+    t0 = time.time()
+    work = tempfile.mkdtemp(prefix="samroad_labels_")
+    try:
+        root = os.path.join(work, "data")
+        t = time.perf_counter()
+        spacenet = write_spacenet_tree(root, seed)
+        print(f"19a: wrote {len(spacenet)} SpaceNet-format tiles in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        spacenet_s = run_prepare(root, "spacenet", spacenet, 400, spacenet_xy)
+        train_ids, _, _ = cityscale_data_partition()
+        t = time.perf_counter()
+        cityscale = write_cityscale_tree(root, seed, train_ids[:8])
+        print(f"19b: wrote {len(cityscale)} Cityscale-format 2048 px tiles in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        cityscale_s = run_prepare(root, "cityscale", cityscale, 2048, cityscale_xy)
+        run_debug_labels(root, work)
+
+        values = spacenet_values(extra)
+        k5 = check_flash_attention(dev, cases=spacenet_flash_cases(values))
+        trained = run_spacenet_train(root, work, dev, extra)
+        infer_rows = check_kernels(int(values["INFER_BATCH_SIZE"]), dev,
+                                   grid=int(values["PATCH_SIZE"]) // 16)
+        inferred = run_spacenet_infer(root, work, trained, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 19 took {time.time() - t0:.1f} s: prepare {spacenet_s:.4f} s per 400 px tile, "
+          f"{cityscale_s:.4f} s per 2048 px tile; training {trained['step_s']:.4f} s a step "
+          f"through the CLI ({trained['wait_s']:.4f} s of it the loader's wait), "
+          f"{trained['clean_s']:.4f} s without a loader, "
+          f"peak {trained['peak'] / 2 ** 30:.3f} GiB; inference "
+          f"{inferred['seconds_per_tile']:.3f} s per tile | {gpu_line()}", flush=True)
+    return dict(k5=k5, infer_rows=infer_rows, train_launches=trained["launches"],
+                infer_launches=inferred["launches"])
+
+
+def spacenet_flash_cases(values: dict):
+    """K5's shapes under the config `values`: its windows (BATCH_SIZE
+    patches of a 16 x 16 grid padded to 28 x 28: 4 windows of 14 x 14) and
+    its 16 x 16 global grid, 12 heads of 64 at ViT-B."""
+    b, grid = int(values["BATCH_SIZE"]), int(values["PATCH_SIZE"]) // 16
+    heads, hd = 12, 64
+    pad = -(-grid // 14) * 14
+    return ((f"SpaceNet window 14x14 batch {b}", b * (pad // 14) ** 2, 14, heads, hd),
+            (f"SpaceNet global {grid}x{grid} batch {b}", b, grid, heads, hd))
+
+
 def check_tool_kernels(dev: str = "cuda", tokens: int = 32 * 1024, dim: int = 768,
                        windows: int = 32 * 9, win: int = 14, heads: int = 12):
     """Phase 11a: K9, K11, K12 and K13 at the tools' shapes (tokens [32768,
@@ -2531,14 +3001,16 @@ def main():
     from sam_road_tpu_torch.metrics._native import load_topo_native
     from sam_road_tpu_torch.metrics.apls_native import ensure_apls_binary
     from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.utils.viz import _lib as draw_lib
 
     t = time.time()
     lib = _build.kernels()
     print(f"built CUDA kernels in {time.time() - t:.1f} s", flush=True)
     print_ptxas(lib._name + ".log", ("gemm_kernel", "ln_stats_kernel", "relpos_attention_kernel"))
     t = time.time()
-    nms_lib(), pairs_lib(), load_topo_native(), ensure_apls_binary()
-    print(f"built host native libs and the APLS scorer in {time.time() - t:.1f} s", flush=True)
+    nms_lib(), pairs_lib(), load_topo_native(), ensure_apls_binary(), draw_lib()
+    print(f"built host native libs, the rasteriser and the APLS scorer in "
+          f"{time.time() - t:.1f} s", flush=True)
 
     phase("3 kernels vs plain at the bench shapes (B=32)")
     results = check_kernels(32)
@@ -2593,6 +3065,10 @@ def main():
     t = time.time()
     config_launches = run_config_regions(SEED)
     print(f"phase 18 took {time.time() - t:.1f} s", flush=True)
+
+    phase(f"19 labels to a trained model: cli.prepare (SpaceNet, Cityscale), cli.debug_labels, "
+          f"cli.train / cli.infer ({SPACENET_CONFIG}), cli.triage")
+    labels = run_labels_to_model(SEED)
     grid_launches = {**infer_runs["pad_free"]["launches"],
                      **infer_runs["pad_free_g4"]["launches"], **infer_runs["rolled"]["launches"]}
 
@@ -2637,7 +3113,7 @@ def main():
 
     kernels = []
     def vith_fields(name):  # phase 12's head_dim 80 reading and vit_h region launches,
-        extra = {"head_dim_80": vith[name]} if name in vith else {}  # phase 17's and 18's
+        extra = {"head_dim_80": vith[name]} if name in vith else {}  # phase 17's, 18's, 19's
         if name in vith_launches:
             extra["vith_region_launches"] = vith_launches[name]
         if name == "fused_attention":
@@ -2647,6 +3123,16 @@ def main():
             if name in runs:
                 key = os.path.basename(path).removesuffix(".yaml")
                 extra[f"{key}_region_launches"] = runs[name]
+        spacenet = {run: labels[f"{run}_launches"][name] for run in ("train", "infer")
+                    if name in labels[f"{run}_launches"]}
+        if spacenet:  # phase 19's cli.train and cli.infer, each counted alone
+            extra["spacenet_launches"] = spacenet
+        if name == "fused_attention":
+            extra["spacenet_shapes"] = labels["k5"]
+        rows = {case: row for case, row in labels["infer_rows"].items()
+                if case.split("+")[0] == name}
+        if rows:  # K1-K4 at phase 19's cli.infer shapes, by case
+            extra["spacenet_16x16"] = rows
         return extra
 
     for name, (src, replaces) in KERNEL_META.items():

@@ -1,15 +1,27 @@
-"""Validation panels and the graph overlay (counterparts of
-render_val_mask_panel, save_val_visualizations and visualize_image_and_graph
-in sam_road_tpu/utils/viz.py), drawn in numpy and written with data/png.py:
-the GPU machine has no cv2. rasterize_graph is not ported yet."""
+"""Drawing and the graph overlays (counterparts of render_val_mask_panel,
+save_val_visualizations, visualize_image_and_graph, rasterize_graph and
+visualize_pred_gt_pair in sam_road_tpu/utils/viz.py), written with
+data/png.py: the GPU machine has no cv2.
+
+draw_lines, draw_disks and draw_rects set the pixels that cv2.line (LINE_8),
+cv2.circle(..., -1) and cv2.rectangle(..., -1) set, exactly: lines and disks
+are drawn in C++ (csrc/draw.cc, built with g++ at first use; a failed build
+raises), rectangles by slicing. The label masks (data/label_gen.py) are
+drawn with them, so the port trains on the JAX package's labels byte for
+byte. resize_bilinear is cv2.resize's INTER_LINEAR up to its fixed-point
+rounding (within one level).
+"""
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import numpy as np
 
-from sam_road_tpu_torch.data.png import write_png
+from sam_road_tpu_torch._native import PKG_DIR, build_and_load
+from sam_road_tpu_torch.data.png import read_png, write_png
 
 
 def render_val_mask_panel(rgb, gt_keypoint, gt_road, pred_keypoint, pred_road):
@@ -57,87 +69,137 @@ def resize_bilinear(img, size: int):
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
-def _set(img, ys, xs, color):
-    keep = (ys >= 0) & (ys < img.shape[0]) & (xs >= 0) & (xs < img.shape[1])
-    img[ys[keep], xs[keep]] = color
+@functools.cache
+def _lib():
+    dll = build_and_load("samroad_draw", "g++", ["-O3", "-shared", "-fPIC", "-std=c++17"],
+                         [os.path.join(PKG_DIR, "csrc", "draw.cc")])
+    args = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+    for fn in (dll.samroad_draw_lines, dll.samroad_draw_disks):
+        fn.restype = None
+        fn.argtypes = args
+    return dll
 
 
-def _ranges(starts, counts):
-    """(owner, value) for the integer ranges [starts[i], starts[i] +
-    counts[i]) laid end to end: owner i repeated counts[i] times."""
-    counts = np.maximum(counts, 0).astype(np.int64)
-    owner = np.repeat(np.arange(counts.shape[0]), counts)
-    first = np.cumsum(counts) - counts
-    return owner, starts[owner] + (np.arange(owner.shape[0]) - first[owner])
+def _target(img, color):
+    """(channels, colour bytes) of a C-contiguous uint8 [H, W] or [H, W, C]
+    image, drawn on in place. A colour is a number or a tuple, padded with
+    zeros or cut to the channel count and saturated to 0-255, as cv2 reads a
+    Scalar."""
+    if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim in (2, 3)
+            and img.flags.c_contiguous):
+        raise TypeError("draws on a C-contiguous uint8 [H, W] or [H, W, C] array")
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    c = np.zeros(ch, np.float64)
+    values = np.atleast_1d(np.asarray(color, np.float64))[:ch]
+    c[:values.shape[0]] = values
+    return ch, np.clip(np.rint(c), 0, 255).astype(np.uint8)
+
+
+def _points(p):
+    return np.ascontiguousarray(np.asarray(p, np.int64).reshape(-1, 2))
 
 
 def draw_lines(img, p0, p1, color, thickness: int = 4):
-    """Thick lines between integer (x, y) points p0[i] and p1[i], drawn as
-    cv2.line draws each for an even thickness: the rectangle offset
-    thickness / 2 to each side (corners rounded to 1/65536), scan-filled row by row from
-    round(left) to round(right) and outlined with 8-connected segments, with
-    a disk of radius thickness // 2 at each end."""
-    p0 = np.asarray(p0, np.float64).reshape(-1, 2)
-    p1 = np.asarray(p1, np.float64).reshape(-1, 2)
-    half = thickness / 2
-    dx, dy = p0[:, 0] - p1[:, 0], p1[:, 1] - p0[:, 1]
-    long = dx * dx + dy * dy > 0
-    if long.any():
-        scale = half / np.sqrt(dx[long] ** 2 + dy[long] ** 2)
-        off = np.stack([np.round(dy[long] * scale * 65536), np.round(dx[long] * scale * 65536)],
-                       1) / 65536
-        q0, q1 = p0[long], p1[long]
-        poly = np.stack([q0 + off, q0 - off, q1 - off, q1 + off], 1)  # [E, 4, (x, y)]
-        a, b = np.roll(poly, 1, axis=1), poly  # edge k of a polygon runs a[:, k] -> b[:, k]
-        y_lo = np.ceil(poly[..., 1].min(1)).astype(np.int64)
-        y_hi = np.floor(poly[..., 1].max(1)).astype(np.int64)
-        owner, rows = _ranges(y_lo, y_hi - y_lo + 1)
-        ay, by, ax, bx = a[owner, :, 1], b[owner, :, 1], a[owner, :, 0], b[owner, :, 0]
-        with np.errstate(divide="ignore", invalid="ignore"):
-            t = (rows[:, None] - ay) / (by - ay)
-        cut = (by != ay) & (t >= 0) & (t <= 1)
-        xs = ax + np.where(cut, t, 0.0) * (bx - ax)
-        lo = np.floor(np.where(cut, xs, np.inf).min(1) + 0.5)
-        hi = np.floor(np.where(cut, xs, -np.inf).max(1) + 0.5)
-        span = cut.any(1)
-        row_of, cols = _ranges(np.where(span, lo, 0).astype(np.int64),
-                               np.where(span, hi - lo + 1, 0).astype(np.int64))
-        _set(img, rows[row_of], cols, color)
-        # the outline: 8-connected segments along the 4 sides
-        sa, sb = a.reshape(-1, 2), b.reshape(-1, 2)
-        n = np.maximum(np.abs(np.rint(sb[:, 0]) - np.rint(sa[:, 0])),
-                       np.abs(np.rint(sb[:, 1]) - np.rint(sa[:, 1]))).astype(np.int64)
-        seg, step = _ranges(np.zeros_like(n), n + 1)
-        t = step / np.maximum(n[seg], 1)
-        _set(img, np.floor(sa[seg, 1] + t * (sb[seg, 1] - sa[seg, 1]) + 0.5).astype(np.int64),
-             np.floor(sa[seg, 0] + t * (sb[seg, 0] - sa[seg, 0]) + 0.5).astype(np.int64), color)
-    draw_disks(img, np.concatenate([p0, p1]).astype(np.int64), thickness // 2, color)
+    """The lines from integer (x, y) points p0[i] to p1[i] ([N, 2] each),
+    as cv2.line(img, p0[i], p1[i], color, thickness) draws each; in place,
+    returns img."""
+    if not 0 < thickness <= 32767:
+        raise ValueError(f"thickness must be in [1, 32767], got {thickness}")
+    ch, col = _target(img, color)
+    p0, p1 = _points(p0), _points(p1)
+    if p0.shape != p1.shape:
+        raise ValueError(f"p0 {p0.shape} and p1 {p1.shape} differ")
+    segs = np.ascontiguousarray(np.concatenate([p0, p1], axis=1))
+    _lib().samroad_draw_lines(img.ctypes.data, img.shape[0], img.shape[1], ch,
+                              segs.ctypes.data, segs.shape[0], col.ctypes.data, int(thickness))
+    return img
 
 
 def draw_disks(img, centers, radius: int, color):
-    """Filled circles at integer (x, y) centers, as cv2.circle(..., -1)
-    draws each: the pixels with x^2 + y^2 <= r^2."""
-    dy, dx = np.mgrid[-radius:radius + 1, -radius:radius + 1]
-    inside = dx * dx + dy * dy <= radius * radius
-    centers = np.asarray(centers, np.int64).reshape(-1, 2)
-    _set(img, (centers[:, 1:2] + dy[inside][None]).ravel(),
-         (centers[:, 0:1] + dx[inside][None]).ravel(), color)
+    """Filled circles of `radius` at integer (x, y) centers ([N, 2]), as
+    cv2.circle(img, center, radius, color, -1) draws each; in place,
+    returns img."""
+    if radius < 0:
+        raise ValueError(f"radius must be >= 0, got {radius}")
+    ch, col = _target(img, color)
+    centers = _points(centers)
+    _lib().samroad_draw_disks(img.ctypes.data, img.shape[0], img.shape[1], ch,
+                              centers.ctypes.data, centers.shape[0], col.ctypes.data,
+                              int(radius))
+    return img
+
+
+def draw_rects(img, p0, p1, color):
+    """Filled rectangles with integer (x, y) corners p0[i] and p1[i]
+    (inclusive, any order), clipped to the image, as
+    cv2.rectangle(img, p0[i], p1[i], color, -1) draws each; in place,
+    returns img."""
+    ch, col = _target(img, color)
+    h, w = img.shape[:2]
+    value = col if ch > 1 else col[0]
+    for (xa, ya), (xb, yb) in zip(_points(p0), _points(p1)):
+        x0, x1 = max(min(xa, xb), 0), min(max(xa, xb), w - 1)
+        y0, y1 = max(min(ya, yb), 0), min(max(ya, yb), h - 1)
+        if x0 <= x1 and y0 <= y1:
+            img[y0:y1 + 1, x0:x1 + 1] = value
+    return img
+
+
+def _pixels(nodes, size: int):
+    """Normalised (r, c) nodes -> integer (x, y) pixels at `size`: scaled in
+    the nodes' own float type and truncated, as the JAX functions' int() of
+    each coordinate."""
+    rc = np.asarray(nodes)
+    if not np.issubdtype(rc.dtype, np.floating):
+        rc = rc.astype(np.float64)
+    return np.trunc(rc.reshape(-1, 2)[:, ::-1] * size).astype(np.int64)
 
 
 def visualize_image_and_graph(img, nodes, edges, viz_img_size=512):
     """Overlay a road graph on an image (sam_road_tpu/utils/viz.py's, after
-    the reference's triage.py): resize to viz_img_size, RGB -> BGR, edges as
-    lines of width 4 in (15, 160, 253), then nodes as filled disks of radius
-    4 in (0, 255, 255). nodes are normalised (r, c) in [0, 1]; returns the
-    BGR image (write its [..., ::-1] with write_png to get the file
-    cv2.imwrite would)."""
-    nodes = np.asarray(nodes, dtype=np.float64).reshape(-1, 2)[:, ::-1]  # (r, c) -> (x, y)
+    the reference's triage.py): resize to viz_img_size, swap the channel
+    order, edges as lines of width 4 in (15, 160, 253), then nodes as filled
+    disks of radius 4 in (0, 255, 255). nodes are normalised (r, c) in
+    [0, 1]; returns the BGR image (write its [..., ::-1] with write_png to
+    get the file cv2.imwrite would)."""
     img = np.ascontiguousarray(resize_bilinear(np.asarray(img), viz_img_size)[..., ::-1])
-    pts = np.trunc(nodes * viz_img_size).astype(np.int64)  # cv2's int() of each coordinate
+    pts = _pixels(nodes, viz_img_size)
     edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     draw_lines(img, pts[edges[:, 0]], pts[edges[:, 1]], EDGE_BGR, 4)
     draw_disks(img, pts, 4, NODE_BGR)
     return img
+
+
+def rasterize_graph(nodes, edges, viz_img_size, dilation_radius):
+    """A graph drawn white on black, [S, S, 3] uint8: each node a filled
+    square of half-side dilation_radius, each edge a line of width
+    2 * dilation_radius. nodes are normalised (r, c) in [0, 1]."""
+    img = np.zeros((viz_img_size, viz_img_size, 3), dtype=np.uint8)
+    pts = _pixels(nodes, viz_img_size)
+    draw_rects(img, pts - dilation_radius, pts + dilation_radius, (255, 255, 255))
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    draw_lines(img, pts[edges[:, 0]], pts[edges[:, 1]], (255, 255, 255), dilation_radius * 2)
+    return img
+
+
+def _read_bgr(path: str):
+    """A PNG tile as uint8 [H, W, 3] in BGR order, as cv2.imread gives it
+    (a grayscale image repeated into three channels)."""
+    img = read_png(path)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=2)
+    return np.ascontiguousarray(img[..., ::-1])
+
+
+def visualize_pred_gt_pair(result):
+    """Side by side, the predicted and the ground-truth graph of one triage
+    record (img_path, pred_nodes, pred_edges, gt_nodes, gt_edges) over its
+    tile: [512, 1024, 3], BGR."""
+    img = _read_bgr(result["img_path"])
+    pred_img = visualize_image_and_graph(img, result["pred_nodes"], result["pred_edges"])
+    gt_img = visualize_image_and_graph(img, result["gt_nodes"], result["gt_edges"])
+    return np.concatenate((pred_img, gt_img), axis=1)
 
 
 def _mask01(x):
