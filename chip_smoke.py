@@ -31,7 +31,14 @@ Cityscale-format ground truth, makes its label masks with the preparation
 CLI (checked against the graphs), runs the label debugger, trains
 configs/toponet_vitb_256_spacenet.yaml at full width on the prepared
 labels (K5 at its window and 256-token global shapes first), infers with
-the trained checkpoint (K1-K4, K3 at 256 tokens) and triages the result.
+the trained checkpoint (K1-K4, K3 at 256 tokens) and triages the result;
+phase 20 (after phase 17) drives the port over several shards: the bench
+workload banded over 4 (distinct cards where 4 are visible, else cuda:0
+four times; masks bit-equal to one device's, K1-K4 launched on every
+shard), configs/toponet_vitb_1024.yaml token-sharded over 4 and over 1 (the
+SP encoder against the fp32 eager one), DDP training steps over gloo and
+NCCL against one process, and the inference CLI with SP_SHARDS /
+DP_SHARDS and the training CLI under torch.distributed.run.
 Every kernel's time sits beside its bound (bytes or operations at the
 card's peak rates) and, where one PyTorch call computes the same function,
 that call's time.
@@ -245,6 +252,21 @@ SPACENET_STEPS = 16
 SPACENET_PER_FORWARD = {"fused_attention": 12}
 SPACENET_INFER_PER_BATCH = {"ln_dense": 12, "window_attention_rows_grid": 8,
                             "attention_relpos_rows": 4, "proj_ln_mlp_residual": 12}
+# phase 20: several shards. DP: the bench workload's patch rows banded over
+# DP_N shards of BENCH's batch / DP_N patches (4 distinct cards where 4 are
+# visible, else cuda:0 four times); SP: SP_CONFIG's 64 token rows over SP_N
+# shards and over 1; DDP: TRAIN's global batch over 2 gloo ranks on cuda:0
+# and over every card through NCCL, against one process, DDP_STEPS steps
+DP_N = 4
+SP_CONFIG = "configs/toponet_vitb_1024.yaml"
+SP_N = 4
+SP_ENCODER_CHUNK = 2  # images a call of the fp32 eager reference encoder
+DDP_STEPS = 4
+DDP_LOSS_RTOL, DDP_GRAD_RTOL = 2e-3, 1e-2
+# SP against one device: tests/test_multichip_inference.py's 1 level is fp32's; here two
+# bf16 encoders (plain-torch attention against K1-K4, features at cosine 0.9999) feed the
+# decoder, and a logit one bf16 step apart moves a sigmoid score by up to about 2 levels
+SP_CLI_MAX_LEVELS = 2
 BLOCK_LOOP = dict(iters=10, reps=3)
 PROBE_REPS = 20
 GROUP_WINDOW_LOOP = dict(iters=10, rounds=4)
@@ -2982,6 +3004,425 @@ def run_t913_tools(dev: str = "cuda", nondiv: dict | None = None, repro: dict | 
     return launches
 
 
+def mesh_devices(n: int, dev: str = "cuda") -> list:
+    """n distinct cards where that many are visible, else `dev` n times."""
+    import torch
+
+    if dev == "cuda" and torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return [dev] * n
+
+
+def reset_peaks(devices) -> None:
+    import torch
+
+    for d in dict.fromkeys(devices):
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+
+
+def peaks_gib(devices) -> dict:
+    """Peak memory allocated on each distinct device of `devices`, GiB."""
+    import torch
+
+    return {str(d): (torch.cuda.max_memory_allocated(d) / 2 ** 30
+                     if torch.device(d).type == "cuda" else 0.0)
+            for d in dict.fromkeys(devices)}
+
+
+def calibrated_single(cfg, model, img, dev: str):
+    """The single-device engine on `img` after run_engine's calibration (a
+    warm run at thresholds 1.0, then the masks' 0.99 / 0.92 quantiles set
+    on `cfg`, which the mesh engines share); returns the engine and its
+    timed result."""
+    from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
+
+    engine = TiledInferenceEngine(cfg, model, dev)
+    cfg.ITSC_THRESHOLD = cfg.ROAD_THRESHOLD = 1.0
+    _, _, kp, road = engine.infer_one_img(img)
+    cfg.ITSC_THRESHOLD = float(np.quantile(kp / 255.0, 0.99))
+    cfg.ROAD_THRESHOLD = float(np.quantile(road / 255.0, 0.92))
+    return engine, engine.infer_one_img(img)
+
+
+def edge_set(nodes, edges) -> set:
+    return {tuple(sorted((tuple(map(int, nodes[a])), tuple(map(int, nodes[b])))))
+            for a, b in edges}
+
+
+def mask_gap(got, want) -> str:
+    """The largest uint8 level difference and the differing pixels of the
+    keypoint and road masks."""
+    parts = []
+    for name, a, b in (("keypoint", got[2], want[2]), ("road", got[3], want[3])):
+        d = np.abs(a.astype(int) - b.astype(int))
+        parts.append(f"{name} max {d.max()} levels, {int((d > 0).sum())} px differ, "
+                     f"{int((d > 1).sum())} by more than 1")
+    return "; ".join(parts)
+
+
+def run_dp_region(seed: int, dev: str = "cuda", overrides: dict = BENCH, region: int = REGION,
+                  n: int = DP_N, per_forward: dict = INFER_MODES["default"][1]):
+    """Phase 20a: the bench workload (`overrides`, seeded weights, the
+    rng(0) region) through the engine's DP banding over n shards (distinct
+    cards where n are visible, else `dev` n times) against the
+    single-device engine: masks bit-equal, vertices and edges equal, and
+    exactly rounds x per_forward launches of each kernel on each shard.
+    Prints both engines' phase times and every device's peak memory.
+    Returns the launches of the DP run by kernel and by shard."""
+    import collections
+
+    from sam_road_tpu_torch.config import load_config
+    from sam_road_tpu_torch.data.partitions import get_patch_info_one_img
+    from sam_road_tpu_torch.inference.engine import TiledInferenceEngine, band_assignment
+    from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
+    from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.parallel import make_mesh
+
+    cfg = load_config(overrides=overrides)
+    model = init_random(SAMRoad.from_config(cfg), seed)
+    img = np.random.default_rng(0).integers(0, 255, size=(region, region, 3), dtype=np.uint8)
+    single, want = calibrated_single(cfg, model, img, dev)
+    print(f"single device: nodes {want[0].shape[0]} edges {want[1].shape[0]} timings "
+          f"{single.last_timings}", flush=True)
+    del single
+    mesh = make_mesh(n, mesh_devices(n, dev))
+    engine = TiledInferenceEngine(cfg, model, dev, mesh=mesh)
+    engine.infer_one_img(img)  # warm
+    b = cfg.INFER_BATCH_SIZE // n
+    infos = get_patch_info_one_img(0, region, cfg.SAMPLE_MARGIN, cfg.PATCH_SIZE,
+                                   cfg.INFER_PATCHES_PER_EDGE)
+    per_dev, offs, band_h = band_assignment(infos, region, n, cfg.PATCH_SIZE)
+    rounds = max(-(-len(g) // b) for g in per_dev)
+    # each phase-1 batch is one shard's round, the shards in turn round by round
+    per_shard = [collections.Counter() for _ in range(n)]
+    batch_fn, calls = engine._phase1_batch, []
+
+    def counted(*args):
+        before = collections.Counter(_build.launches)
+        out = batch_fn(*args)
+        per_shard[len(calls) % n].update(collections.Counter(_build.launches) - before)
+        calls.append(1)
+        return out
+
+    engine._phase1_batch = counted
+    reset_peaks(mesh.devices)
+    _build.reset_launches()
+    got = engine.infer_one_img(img)
+    launches = dict(_build.launches)
+    peaks = peaks_gib(mesh.devices)
+    del engine._phase1_batch
+    dp_t = dict(engine.last_timings)
+    engine.infer_one_img(img)
+    print(f"DP over {n} shards {[str(d) for d in mesh.devices]}: {len(infos)} patches, "
+          f"{b} a shard's round, {rounds} rounds, bands of {band_h} rows at {offs}; nodes "
+          f"{got[0].shape[0]} edges {got[1].shape[0]}; timings {dp_t}, repeat "
+          f"{engine.last_timings}; peak memory allocated GiB {peaks}", flush=True)
+    print(f"DP launches {launches}; per shard {[dict(c) for c in per_shard]}", flush=True)
+    print(f"DP against single device: {mask_gap(got, want)}", flush=True)
+    same = (np.array_equal(got[2], want[2]) and np.array_equal(got[3], want[3])
+            and np.array_equal(got[0], want[0])
+            and edge_set(got[0], got[1]) == edge_set(want[0], want[1]))
+    if not same:
+        raise SystemExit("DP masks, vertices or edges differ from the single-device engine's")
+    if launches != {k: v * n * rounds for k, v in per_forward.items()} or any(
+            dict(c) != {k: v * rounds for k, v in per_forward.items()} for c in per_shard):
+        raise SystemExit(f"DP launches {launches} / {per_shard}, expected {per_forward} x "
+                         f"{rounds} rounds on each of {n} shards")
+    print("DP: masks bit-equal, vertices and edges equal to the single-device engine's",
+          flush=True)
+    return dict(shards=n, rounds=rounds, batch=b, devices=[str(d) for d in mesh.devices],
+                total=launches, per_shard=[dict(c) for c in per_shard])
+
+
+def run_sp_region(seed: int, dev: str = "cuda", config: str = SP_CONFIG, region: int = REGION,
+                  n: int = SP_N, overrides: dict | None = None):
+    """Phase 20b: `config` (seeded weights) with SP_SHARDS n and 1: the SP
+    encoder's features on the region's first batch against the fp32 eager
+    encoder (cosine >= COS_MIN), then the region through each SP engine
+    against the single-device engine (FUSED_ENCODER, K1-K4): the masks'
+    level differences, the vertex-set difference and the times, printed."""
+    import torch
+
+    from sam_road_tpu_torch.config import Config, load_config, read_flat_yaml
+    from sam_road_tpu_torch.data.partitions import get_patch_info_one_img
+    from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
+    from sam_road_tpu_torch.models.sam_road import PIXEL_MEAN, PIXEL_STD, SAMRoad, init_random
+    from sam_road_tpu_torch.parallel import make_mesh
+
+    cfg = load_config(overrides={**read_flat_yaml(config), **(overrides or {})})
+    model = init_random(SAMRoad.from_config(cfg), seed)
+    img = np.random.default_rng(0).integers(0, 255, size=(region, region, 3), dtype=np.uint8)
+    single, want = calibrated_single(cfg, model, img, dev)
+    print(f"single device ({config}): nodes {want[0].shape[0]} edges {want[1].shape[0]} "
+          f"timings {single.last_timings}", flush=True)
+    del single
+    p = cfg.PATCH_SIZE
+    xy = [i[1] for i in get_patch_info_one_img(0, region, cfg.SAMPLE_MARGIN, p,
+                                               cfg.INFER_PATCHES_PER_EDGE)]
+    crops = np.stack([img[y:y + p, x:x + p] for x, y in xy[:cfg.INFER_BATCH_SIZE]])
+    rgb = torch.from_numpy(crops).to(dev).float()
+    enc = model.image_encoder
+    with torch.no_grad():  # the fp32 eager reference, SP_ENCODER_CHUNK images a call
+        xf = (rgb - torch.tensor(PIXEL_MEAN, device=dev)) / torch.tensor(PIXEL_STD, device=dev)
+        enc.dtype = torch.float32
+        for blk in enc.blocks:
+            blk.attn.use_flash = False
+        ref = torch.cat([enc(xf[i:i + SP_ENCODER_CHUNK]) for i in
+                         range(0, xf.shape[0], SP_ENCODER_CHUNK)]).float()
+        enc.dtype = model.dtype
+        for blk in enc.blocks:
+            blk.attn.use_flash = cfg.FLASH_ATTENTION
+    del xf
+    out = {}
+    for shards in (n, 1):
+        mesh = make_mesh(shards, mesh_devices(shards, dev))
+        engine = TiledInferenceEngine(Config({**cfg, "SP_SHARDS": shards}), model, dev, mesh=mesh)
+        with torch.no_grad():
+            feats = engine.encoder(enc, model.normalize(rgb)).float()
+        cos = torch.nn.functional.cosine_similarity(feats.flatten(), ref.flatten(), dim=0).item()
+        ok = bool(torch.isfinite(feats).all()) and cos >= COS_MIN
+        print(f"SP_SHARDS {shards} encoder ({tuple(feats.shape)}, bf16) vs eager fp32: cosine "
+              f"{cos:.6f} max_abs {(feats - ref).abs().max().item():.3e} (min {COS_MIN}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"the SP_SHARDS {shards} encoder disagrees with the eager encoder")
+        del feats
+        reset_peaks(mesh.devices)
+        t = time.time()
+        got = engine.infer_one_img(img)
+        wall = time.time() - t
+        s0 = {tuple(map(int, v)) for v in want[0]}
+        s1 = {tuple(map(int, v)) for v in got[0]}
+        print(f"SP_SHARDS {shards} region over {[str(d) for d in mesh.devices]}: {wall:.3f} s, "
+              f"timings {engine.last_timings}; nodes {got[0].shape[0]} edges "
+              f"{got[1].shape[0]}; vertex-set difference {len(s0 ^ s1)} of {len(s0)}; "
+              f"{mask_gap(got, want)}; peak memory allocated GiB {peaks_gib(mesh.devices)}",
+              flush=True)
+        if got[0].shape[0] == 0 or got[1].shape[0] == 0:
+            raise SystemExit(f"SP_SHARDS {shards}: an empty graph")
+        out[shards] = dict(cosine=cos, seconds=wall, vertex_gap=len(s0 ^ s1))
+        del engine
+    return out
+
+
+def ddp_rank(rank: int, world: int, backend: str, port: int, work: str, seed: int,
+             geometry: dict, devices: list):
+    """Phase 20c, one spawned rank: joins the process group, trains the
+    seeded model deterministic on its rows of work/batches.pkl
+    (parallel.shard_batch), and writes its logs, launches and peak memory
+    to work/<backend>_rank<rank>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from sam_road_tpu_torch.config import load_config
+    from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
+    from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.parallel import shard_batch
+    from sam_road_tpu_torch.training.harness import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(devices[rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        with open(os.path.join(work, "batches.pkl"), "rb") as f:
+            batches = pickle.load(f)
+        cfg = load_config(overrides=geometry)
+        trainer = Trainer(cfg, init_random(SAMRoad.from_config(cfg), seed), work, len(batches),
+                          device=dev, log_every=1, deterministic=True)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        logs = trainer.train_epoch([shard_batch(b, rank, world) for b in batches], epoch=0)
+        out = dict(logs=logs, launches=dict(_build.launches),
+                   peak=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"{backend}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ddp(seed: int, dev: str = "cuda", geometry: dict = TRAIN, steps: int = DDP_STEPS,
+            per_forward: int = 12):
+    """Phase 20c: `steps` deterministic training steps of the seeded model
+    at `geometry` in one process, then under DistributedDataParallel: 2
+    gloo ranks on `dev` with half the rows each, and (on the card) NCCL
+    over every visible card. Batch 0's halves hold different numbers of
+    valid pairs. Each rank's loss and grad_norm must stay within
+    DDP_LOSS_RTOL / DDP_GRAD_RTOL of one process's at every step, with the
+    same skipped flags, and launch K5 per_forward times a step. Returns
+    each run's launches by rank."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from sam_road_tpu_torch.config import load_config
+    from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
+    from sam_road_tpu_torch.training.harness import Trainer
+
+    work = tempfile.mkdtemp(prefix="samroad_ddp_")
+    try:
+        batches = train_batches(steps, seed, geometry)
+        b0, half = batches[0], geometry["BATCH_SIZE"] // 2
+        keep = np.random.default_rng(seed + 1).random(b0["valid"][half:].shape) < 0.35
+        keep[:, 0, 0] = True
+        b0["valid"][half:] &= keep
+        b0["connected"] &= b0["valid"]
+        counts = b0["valid"].reshape(2, -1).sum(axis=1).tolist()
+        with open(os.path.join(work, "batches.pkl"), "wb") as f:
+            pickle.dump(batches, f)
+        cfg = load_config(overrides=geometry)
+        trainer = Trainer(cfg, init_random(SAMRoad.from_config(cfg), seed), work, steps,
+                          device=dev, log_every=1, deterministic=True)
+        want = trainer.train_epoch(batches, epoch=0)
+        del trainer
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        print(f"one process, {geometry['BATCH_SIZE']} rows a step (batch 0's halves hold "
+              f"{counts} valid pairs): losses {[round(w['loss'], 6) for w in want]} grad_norm "
+              f"{[round(w['grad_norm'], 6) for w in want]}; seconds per step after the first "
+              f"{statistics.mean(w['seconds'] for w in want[1:]):.4f}", flush=True)
+        runs = {"gloo": ["cuda:0" if dev == "cuda" else dev] * 2}
+        if dev == "cuda":
+            runs["nccl"] = [f"cuda:{i}" for i in range(max(1, torch.cuda.device_count()))]
+        out = {}
+        for backend, devices in runs.items():
+            world = len(devices)
+            t = time.time()
+            mp.start_processes(ddp_rank, args=(world, backend, free_port(), work, seed, geometry,
+                                               devices), nprocs=world, start_method="spawn")
+            wall = time.time() - t
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(work, f"{backend}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            worst_loss = worst_norm = 0.0
+            for rank in ranks:
+                if len(rank["logs"]) != steps:
+                    raise SystemExit(f"{backend}: a rank logged {len(rank['logs'])} steps")
+                for got, ref in zip(rank["logs"], want):
+                    worst_loss = max(worst_loss, abs(got["loss"] - ref["loss"]) / abs(ref["loss"]))
+                    worst_norm = max(worst_norm, abs(got["grad_norm"] - ref["grad_norm"])
+                                     / abs(ref["grad_norm"]))
+                    if got["skipped"] != ref["skipped"]:
+                        raise SystemExit(f"{backend}: a step's skipped flag differs")
+            steady = [log["seconds"] for log in ranks[0]["logs"][1:]]
+            launches = [rank["launches"] for rank in ranks]
+            print(f"DDP {backend}, {world} ranks on {devices} x {geometry['BATCH_SIZE'] // world} "
+                  f"rows: losses {[round(log['loss'], 6) for log in ranks[0]['logs']]} grad_norm "
+                  f"{[round(log['grad_norm'], 6) for log in ranks[0]['logs']]}; largest relative "
+                  f"gap to one process: loss {worst_loss:.3e} (max {DDP_LOSS_RTOL}) grad_norm "
+                  f"{worst_norm:.3e} (max {DDP_GRAD_RTOL}); seconds per step after the first "
+                  f"{statistics.mean(steady):.4f} ({', '.join(f'{x:.4f}' for x in steady)}); peak "
+                  f"memory allocated GiB {[round(rank['peak'] / 2 ** 30, 3) for rank in ranks]}; "
+                  f"launches by rank {launches}; run with start-up {wall:.1f} s", flush=True)
+            if worst_loss > DDP_LOSS_RTOL or worst_norm > DDP_GRAD_RTOL:
+                raise SystemExit(f"DDP {backend}: losses or grad_norm differ from one process's")
+            if dev == "cuda" and any(l != {"fused_attention": per_forward * steps}
+                                     for l in launches):
+                raise SystemExit(f"DDP {backend}: launches {launches}, expected "
+                                 f"{per_forward * steps} of fused_attention on each rank")
+            out[f"{backend}_{world}x{geometry['BATCH_SIZE'] // world}"] = launches
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_multi_cli(work: str, dev: str = "cuda"):
+    """Phase 20d, over phase 10's files in `work` (its calibrated config,
+    SAM-format checkpoint and tiles; save/default its single-device masks)
+    and phase 9's dataset: cli.infer on the first tile with SP_SHARDS 1 and,
+    where 2 or more cards are visible, with DP_SHARDS = every card (masks
+    bit-equal); cli.infer with more shards than cards raises; cli.train
+    --dev_run under torch.distributed.run, one rank per card."""
+    import torch
+
+    from sam_road_tpu_torch.cli import infer
+    from sam_road_tpu_torch.config import read_flat_yaml, write_flat_yaml
+    from sam_road_tpu_torch.data.partitions import cityscale_data_partition
+    from sam_road_tpu_torch.data.png import read_png
+    from sam_road_tpu_torch.ops import _build
+
+    tile = cityscale_data_partition()[2][0]
+    values = read_flat_yaml(os.path.join(work, "infer.yaml"))
+    pth = os.path.join(work, "sam_vit_b_seeded.pth")
+    data = os.path.join(work, "infer_data")
+    cards = torch.cuda.device_count() if dev == "cuda" else 0
+
+    def masks(run):
+        return [read_png(os.path.join(work, "save", run, "mask", f"{tile}_{k}.png"))
+                for k in ("itsc", "road")]
+
+    def cli_infer(name, **keys):
+        path = os.path.join(work, f"{name}.yaml")
+        write_flat_yaml(path, {**values, **keys})
+        return infer.main(["--config", path, "--checkpoint", pth, "--data_root", data,
+                           "--output_dir", name, "--max_tiles", "1", "--device", dev])
+
+    want = masks("default")
+    runs = {"sp1": dict(SP_SHARDS=1)}
+    if cards >= 2:
+        runs["dp"] = dict(DP_SHARDS=cards)
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI writes ./save/<output_dir>
+    try:
+        for name, keys in runs.items():
+            _build.reset_launches()
+            t = time.time()
+            cli_infer(name, **keys)
+            wall = time.time() - t
+            got = masks(name)
+            gaps = [np.abs(a.astype(int) - b.astype(int)) for a, b in zip(got, want)]
+            print(f"cli.infer {keys}: tile {tile} in {wall:.1f} s with loading; against the "
+                  f"single-device run: itsc max {gaps[0].max()} levels ({int((gaps[0] > 0).sum())}"
+                  f" px differ), road max {gaps[1].max()} ({int((gaps[1] > 0).sum())} px); "
+                  f"launches {dict(_build.launches)}", flush=True)
+            if name == "dp" and any(g.any() for g in gaps):
+                raise SystemExit("cli.infer DP masks differ from the single-device run's")
+            if name == "sp1" and any(g.max() > SP_CLI_MAX_LEVELS for g in gaps):
+                raise SystemExit(f"cli.infer SP_SHARDS 1 masks differ from the single-device "
+                                 f"run's by more than {SP_CLI_MAX_LEVELS} levels")
+        too_many = max(cards, 1) + 1
+        try:
+            cli_infer("too_many", DP_SHARDS=too_many)
+        except RuntimeError as e:
+            print(f"cli.infer DP_SHARDS {too_many} raises: {e}", flush=True)
+        else:
+            raise SystemExit(f"cli.infer ran with DP_SHARDS {too_many} on {cards} card(s)")
+    finally:
+        os.chdir(cwd)
+
+    ranks = max(cards, 1)
+    out = os.path.join(work, "ddp_train")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={ranks}", "-m", "sam_road_tpu_torch.cli.train", "--config",
+           os.path.join(work, "eager.yaml"), "--dev_run", "--steps_per_epoch", "4",
+           "--data_root", os.path.join(work, "data"), "--output_dir", out, "--device", dev]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t = time.time()
+    proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines() if l.startswith(("epoch", "saved"))]
+    print(f"cli.train under torch.distributed.run, {ranks} rank(s): rc {proc.returncode} in "
+          f"{time.time() - t:.1f} s", flush=True)
+    print("\n".join(lines), flush=True)
+    if proc.returncode or not os.path.exists(os.path.join(out, "ckpt_epoch_0.pt")):
+        print(proc.stderr[-4000:], flush=True)
+        raise SystemExit("cli.train under torch.distributed.run failed")
+
+
 def main():
     phase("1 device")
     import torch
@@ -3058,6 +3499,21 @@ def main():
         lora_launches = run_lora(SEED)
         lora_launches.update(run_lora_cli(SEED, work))
         print(f"phase 17 took {time.time() - t:.1f} s", flush=True)
+
+        phase(f"20 several shards: DP banding over the bench workload, SP ({SP_CONFIG}), "
+              "DDP training steps, and the inference and training CLIs")
+        t = time.time()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp = run_dp_region(SEED)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_sp_region(SEED)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ddp = run_ddp(SEED)
+        run_multi_cli(work)
+        print(f"phase 20 took {time.time() - t:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3129,6 +3585,12 @@ def main():
             extra["spacenet_launches"] = spacenet
         if name == "fused_attention":
             extra["spacenet_shapes"] = labels["k5"]
+            extra["ddp_launches"] = {run: [r.get(name, 0) for r in ranks]
+                                     for run, ranks in ddp.items()}  # phase 20c, by rank
+        if name in dp["total"]:  # phase 20a: DP over the bench workload
+            extra["dp_region_launches"] = dict(
+                shards=dp["shards"], rounds=dp["rounds"], batch=dp["batch"],
+                per_shard=[c[name] for c in dp["per_shard"]], total=dp["total"][name])
         rows = {case: row for case, row in labels["infer_rows"].items()
                 if case.split("+")[0] == name}
         if rows:  # K1-K4 at phase 19's cli.infer shapes, by case

@@ -16,9 +16,16 @@ SpaceNet nodes flipped to its ground-truth frame) and inference_time.txt.
 package's ckpt_epoch_N.pt loads strictly; a SAM .pth or SAMRoad .ckpt goes
 through the pos-embed resize and the name-and-shape overlay onto a model
 initialised with init_random(seed 0). A JAX orbax directory raises.
-DP_SHARDS > 1 and SP_SHARDS >= 1 raise: multi-GPU is not ported. --device
-cuda (the default) raises when torch sees no GPU. Returns the output
-directory.
+--device cuda (the default) raises when torch sees no GPU. Returns the
+output directory.
+
+Several cards, one process (inference/engine.py): DP_SHARDS > 1 bands each
+tile's patch grid over the first DP_SHARDS visible CUDA devices (masks
+bit-equal to one device's); SP_SHARDS >= 1 shards every patch's encoder
+tokens over SP_SHARDS devices (SP_SHARDS 1: the SP machinery on one
+device). The two together raise, as the JAX CLI asserts. Where fewer CUDA
+devices are visible than asked for, the CLI raises and names the count
+(the JAX CLI prints and runs on one device).
 """
 
 from __future__ import annotations
@@ -61,9 +68,22 @@ def main(argv=None):
     from sam_road_tpu_torch.utils.viz import visualize_image_and_graph
 
     config = load_config(args.config)
-    if int(config.DP_SHARDS or 0) > 1 or int(config.SP_SHARDS or 0) >= 1:
-        raise NotImplementedError("DP_SHARDS > 1 and SP_SHARDS >= 1 shard over several devices; "
-                                  "multi-GPU inference is not ported")
+    mesh = None
+    dp_shards, sp_shards = int(config.DP_SHARDS or 0), int(config.SP_SHARDS or 0)
+    if dp_shards > 1 and sp_shards >= 1:
+        raise ValueError("DP_SHARDS and SP_SHARDS are mutually exclusive (spatial patch "
+                         "banding vs token-row sharding of one patch)")
+    if dp_shards > 1 or sp_shards >= 1:
+        from sam_road_tpu_torch.parallel import make_mesh
+
+        want = max(dp_shards, sp_shards)
+        visible = torch.cuda.device_count() if device.type == "cuda" else 0
+        if visible < want:
+            raise RuntimeError(f"{'DP' if dp_shards > 1 else 'SP'}_SHARDS={want} needs {want} "
+                               f"CUDA devices, but {visible} are visible")
+        mesh = make_mesh(want)
+        kind = "patch grid" if dp_shards > 1 else "encoder token grid (sequence parallel)"
+        print(f"sharding the {kind} over {want} devices")
     model, mismatched = load_weights(args.checkpoint, config)
     if mismatched:
         print(f"warning: {len(mismatched)} params not found in checkpoint")
@@ -84,7 +104,7 @@ def main(argv=None):
     for sub in ("mask", "viz", "graph"):
         os.makedirs(os.path.join(output_dir, sub), exist_ok=True)
 
-    engine = TiledInferenceEngine(config, model, device)
+    engine = TiledInferenceEngine(config, model, device, mesh=mesh)
     # every tile is read first: infer_tiles dispatches the next one early
     imgs = [read_rgb_img(rgb_pattern.format(i)) for i in test_img_indices]
 

@@ -443,6 +443,8 @@ int encode_tiles(CUtensorMap* map, const void* B, int N, int K, int rows) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+constexpr int MAX_DEVICES = 64;
+
 template <int BN, int AM, bool GELU, int RES, bool OUT_F32, bool A_GRID, bool C_GRID>
 int launch_bn(const void* A, const void* B, const Params& p, cudaStream_t stream) {
   CUtensorMap ma{}, mb{};  // ma only where A arrives by TMA (A_BF16 on flat rows)
@@ -451,9 +453,16 @@ int launch_bn(const void* A, const void* B, const Params& p, cudaStream_t stream
   if (e) return e;
   auto kernel = gemm_kernel<BN, AM, GELU, RES, OUT_F32, A_GRID, C_GRID>;
   constexpr int bytes = smem_bytes<BN>();
-  static const int attr =  // once per instance (and device: the port runs on one)
-      (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr) return attr;
+  // once per instance and device: one process may launch on several cards
+  static bool attr_set[MAX_DEVICES] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    const int attr =
+        (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (attr) return attr;
+    attr_set[dev] = true;
+  }
   dim3 grid(p.N / BN, (p.M + BM - 1) / BM);
   kernel<<<grid, THREADS, bytes, stream>>>(ma, mb, A, p);
   return (int)cudaGetLastError();

@@ -78,28 +78,32 @@ def layer_norm(x, norm: nn.LayerNorm):
                         norm.bias, norm.eps).to(x.dtype)
 
 
-def fold_rel_pos_qk(q, k, Rh, Rw, hw, scale):
+def fold_rel_pos_qk(q, k, Rh, Rw, hw, scale, row0: int = 0):
     """Fold the decomposed rel-pos bias into one score product
-    (sam_road_tpu/models/vit.py::fold_rel_pos_qk over the full grid):
+    (sam_road_tpu/models/vit.py::fold_rel_pos_qk):
       q~ = [q * scale, q.Rh (row qh), q.Rw (row qw), 0 ...]
       k~ = [k,         onehot(kh),    onehot(kw),    0 ...]
-    so q~.k~ = q.k * scale + rel_h[qh, kh] + rel_w[qw, kw]. q, k [G, nH, N,
-    hd] over the (H, W) grid, N = H * W; Rh [H, H, hd], Rw [W, W, hd] in
-    q's dtype. The one-hot columns are exact in bf16. Both are padded with
-    zero columns to a width D that is a multiple of 16 (hd + H + W = 92 at
-    ViT-B's 14 x 14 windows becomes 96), which adds nothing to a score: K5's
-    kernel copies 16-byte rows, and a 92-wide bf16 row is 184 bytes."""
+    so q~.k~ = q.k * scale + rel_h[qh, kh] + rel_w[qw, kw]. k [G, nH, N,
+    hd] over the (H, W) grid, N = H * W; q [G, nH, Nq, hd] the queries of
+    the whole grid rows [row0, row0 + Nq / W) (all of it where Nq = N; the
+    sequence-parallel encoder passes its shard's rows); Rh [H, H, hd], Rw
+    [W, W, hd] in q's dtype. The one-hot columns are exact in bf16. Both are
+    padded with zero columns to a width D that is a multiple of 16 (hd + H
+    + W = 92 at ViT-B's 14 x 14 windows becomes 96), which adds nothing to a
+    score: K5's kernel copies 16-byte rows, and a 92-wide bf16 row is 184
+    bytes."""
     H, W = hw
-    G, nh, N, hd = q.shape
+    G, nh, Nq, hd = q.shape
+    N = k.shape[2]
+    rows = Nq // W
     pad = -(hd + H + W) % 16
-    r_q = q.reshape(G, nh, H, W, hd)
-    qh = torch.einsum("gnhwc,hkc->gnhwk", r_q, Rh).reshape(G, nh, N, H)
-    qw = torch.einsum("gnhwc,wkc->gnhwk", r_q, Rw).reshape(G, nh, N, W)
-    zeros = q.new_zeros((G, nh, N, pad))
-    q_aug = torch.cat([q * scale, qh, qw, zeros], dim=-1)
+    r_q = q.reshape(G, nh, rows, W, hd)
+    qh = torch.einsum("gnhwc,hkc->gnhwk", r_q, Rh[row0:row0 + rows]).reshape(G, nh, Nq, H)
+    qw = torch.einsum("gnhwc,wkc->gnhwk", r_q, Rw).reshape(G, nh, Nq, W)
+    q_aug = torch.cat([q * scale, qh, qw, q.new_zeros((G, nh, Nq, pad))], dim=-1)
     idx = torch.arange(N, device=q.device)
     pos = torch.cat([F.one_hot(idx // W, H), F.one_hot(idx % W, W)], dim=1).to(q.dtype)
-    k_aug = torch.cat([k, pos.expand(G, nh, N, H + W), zeros], dim=-1)
+    k_aug = torch.cat([k, pos.expand(G, nh, N, H + W), k.new_zeros((G, nh, N, pad))], dim=-1)
     return q_aug, k_aug
 
 

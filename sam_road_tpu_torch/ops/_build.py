@@ -96,8 +96,14 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The current stream of t's device. A kernel launches on the current
+    device, so a tensor on another card raises (callers that drive several
+    cards enter torch.cuda.device(...) per shard, parallel/mesh.py)."""
     import torch
 
+    if t.device.index != torch.cuda.current_device():
+        raise RuntimeError(f"tensor on {t.device} but the current device is "
+                           f"cuda:{torch.cuda.current_device()}")
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

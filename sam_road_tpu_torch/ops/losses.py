@@ -37,10 +37,13 @@ def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0,
     return _reduce(loss, reduction)
 
 
-def masked_topo_loss(topo_logits, connected, valid):
+def masked_topo_loss(topo_logits, connected, valid, denominator=None):
     """BCE over topology pairs, masked by `valid` and normalised by the
-    valid count. topo_logits [B, S, K, 1]; connected, valid [B, S, K]."""
+    valid count (at least 1). topo_logits [B, S, K, 1]; connected, valid
+    [B, S, K]. `denominator` replaces the local count: a data-parallel rank
+    passes the global one over the world size (training/harness.py), so
+    the ranks' mean is JAX's loss over the global batch."""
     gt = connected.float()[..., None]
     mask = valid.float()[..., None]
     loss = bce_with_logits(topo_logits, gt, reduction="none") * mask
-    return loss.sum() / mask.sum().clamp(min=1.0)
+    return loss.sum() / (mask.sum().clamp(min=1.0) if denominator is None else denominator)

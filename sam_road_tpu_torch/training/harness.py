@@ -23,6 +23,27 @@ recompute backward); the eval step and the validation panels stay on the
 eager model, as the JAX eval step stays on the flax model. REMAT_ENCODER
 checkpoints each encoder block on both paths; it refuses LoRA and the SAM
 decoder, as the JAX harness does.
+
+Data parallelism (the JAX Trainer over its dp mesh) is one process per rank
+under torch.distributed: where a process group is initialised, the Trainer
+wraps the model in DistributedDataParallel, and each rank trains on its own
+rows of the global batch (cli/train.py gives its loaders process_index /
+process_count). What the JAX step computes over the global batch, the ranks
+compute together:
+  mask losses      means over equal local batches; DDP's gradient average
+                   is the global mean's gradient;
+  topology loss    divided by the global valid count over the world size
+                   (one all-reduce before the forward), so the average is
+                   the global masked mean's gradient where the ranks hold
+                   different numbers of valid pairs;
+  reported losses  all-reduced and averaged after the backward;
+  grad_norm        taken on DDP's averaged gradients, then clipping and the
+                   non-finite skip, so every rank takes the same decision
+                   (a NaN on one rank reaches all through the reductions);
+  validation       each rank's totals summed across ranks before dividing.
+Adam's state stays replicated (DDP broadcasts rank 0's weights at the
+start, and every rank applies the same update). Rank 0 alone prints, logs
+and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -33,6 +54,8 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from sam_road_tpu_torch.models.fast_encoder import encoder_forward_fused
 from sam_road_tpu_torch.ops.losses import bce_with_logits, masked_topo_loss, sigmoid_focal_loss
@@ -121,10 +144,16 @@ def _fused_forward(model, rgb, graph_points, pairs, valid, generator=None, remat
                  generator=generator, encoder=encoder)
 
 
+def distributed() -> bool:
+    """Whether a torch.distributed process group is initialised."""
+    return dist.is_available() and dist.is_initialized()
+
+
 def loss_fn(model, batch, use_focal: bool, deterministic: bool = False, generator=None,
-            fused: bool = False, remat: bool = False):
+            fused: bool = False, remat: bool = False, topo_denominator=None):
     """Mask loss (BCE or focal) + masked topology BCE on a materialized
-    batch, through the eager model or, with `fused`, _fused_forward.
+    batch, through the eager model or, with `fused`, _fused_forward;
+    topo_denominator replaces the batch's valid count (masked_topo_loss).
     Returns (loss, {"mask_loss", "topo_loss", "loss"}), fp32."""
     args = (batch["rgb"], batch["graph_points"], batch["pairs"], batch["valid"])
     if fused:
@@ -135,18 +164,22 @@ def loss_fn(model, batch, use_focal: bool, deterministic: bool = False, generato
                                                generator=generator)
     gt = torch.stack([batch["keypoint_mask"], batch["road_mask"]], dim=3)
     mask_loss = (sigmoid_focal_loss if use_focal else bce_with_logits)(mask_logits, gt)
-    topo_loss = masked_topo_loss(topo_logits, batch["connected"], batch["valid"])
+    topo_loss = masked_topo_loss(topo_logits, batch["connected"], batch["valid"],
+                                 topo_denominator)
     loss = mask_loss + topo_loss
     return loss, {"mask_loss": mask_loss, "topo_loss": topo_loss, "loss": loss}
 
 
-def make_train_step(config, model, optimizer, steps_per_epoch: int):
+def make_train_step(config, model, optimizer, steps_per_epoch: int, forward_model=None,
+                    deterministic: bool = False):
     """train_step(batch, generator) -> aux: forward with dropout (through
-    _fused_forward with FUSED_ENCODER_TRAIN), loss, gradients, grad_norm
-    over all of them, GRAD_CLIP_NORM scaling (off at 0), and the Adam
-    update. A step whose loss or grad_norm is not finite
+    _fused_forward with FUSED_ENCODER_TRAIN; none where deterministic),
+    loss, gradients, grad_norm over all of them, GRAD_CLIP_NORM scaling (off
+    at 0), and the Adam update. A step whose loss or grad_norm is not finite
     changes neither the parameters nor Adam's state (aux["skipped"] = 1);
-    checking costs one host sync per step."""
+    checking costs one host sync per step. `forward_model` (the DDP wrapper
+    of `model`, under a process group) runs the forward; the ranks then
+    reduce as the module docstring says."""
     fused = bool(config.FUSED_ENCODER_TRAIN)
     if fused and config.USE_SAM_DECODER:
         raise ValueError("FUSED_ENCODER_TRAIN requires the naive map decoder "
@@ -161,11 +194,26 @@ def make_train_step(config, model, optimizer, steps_per_epoch: int):
     params = list(model.parameters())
     device = params[0].device
 
+    forward = model if forward_model is None else forward_model
+    reduce = distributed()
+    world = dist.get_world_size() if reduce else 1
+
     def train_step(batch, generator) -> dict:
         model.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(model, materialize_batch(batch, device), use_focal,
-                            deterministic=False, generator=generator, fused=fused, remat=remat)
+        batch = materialize_batch(batch, device)
+        denom = None
+        if reduce:  # the global valid count, as JAX's step over the global batch
+            count = batch["valid"].sum(dtype=torch.float32)
+            dist.all_reduce(count)
+            denom = count.clamp(min=1.0) / world
+        loss, aux = loss_fn(forward, batch, use_focal, deterministic=deterministic,
+                            generator=generator, fused=fused, remat=remat,
+                            topo_denominator=denom)
         loss.backward()
+        if reduce:
+            stats = torch.stack([aux[k].detach() for k in ("mask_loss", "topo_loss", "loss")])
+            dist.all_reduce(stats)
+            aux = dict(zip(("mask_loss", "topo_loss", "loss"), stats / world))
         for p in params:
             if p.grad is None and p.requires_grad:
                 p.grad = torch.zeros_like(p)
@@ -175,7 +223,7 @@ def make_train_step(config, model, optimizer, steps_per_epoch: int):
             scale = (clip_norm / grad_norm.clamp(min=1e-12)).clamp(max=1.0)
             for g in grads:
                 g.mul_(scale)
-        finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        finite = bool(torch.isfinite(aux["loss"]) & torch.isfinite(grad_norm))
         if finite:
             apply_update(optimizer, boundary)
         out = {k: v.item() for k, v in aux.items()}
@@ -188,7 +236,10 @@ def make_train_step(config, model, optimizer, steps_per_epoch: int):
 def make_eval_step(config, model):
     """eval_step(batch) -> losses and metric counts as tensors. An optional
     batch["sample_weight"] [B] weights every sum, so the padding samples of
-    a ragged last batch (weight 0) count nowhere."""
+    a ragged last batch (weight 0) count nowhere. Under a process group
+    the topology loss is this rank's share of the global batch's (one
+    all-reduce of its valid count and weight), so the ranks' summed totals
+    give one process's validation metrics."""
     use_focal = bool(config.FOCAL_LOSS)
     device = next(model.parameters()).device
     mask_loss_el = sigmoid_focal_loss if use_focal else bce_with_logits
@@ -207,6 +258,15 @@ def make_eval_step(config, model):
         mask_loss = (mask_el * w_pix[..., None]).sum() / (w.sum() * per_sample).clamp(min=1.0)
         topo_valid = b["valid"] & (w > 0)[:, None, None]
         topo_loss = masked_topo_loss(topo_logits, b["connected"], topo_valid)
+        if distributed():
+            # this rank's share of the global batch's topology mean, scaled
+            # so that _accumulate_eval's topo_loss * weight, summed over the
+            # ranks, is that mean times the global weight
+            counts = torch.stack([topo_valid.sum(dtype=torch.float32), w.sum()])
+            dist.all_reduce(counts)
+            share = masked_topo_loss(topo_logits, b["connected"], topo_valid,
+                                     counts[0].clamp(min=1.0)) * counts[1]
+            topo_loss = torch.where(w.sum() > 0, share / w.sum(), torch.zeros_like(share))
         valid_i = topo_valid.int()
         topo_gt = (1 - valid_i) * -1 + valid_i * b["connected"].int()
         return {
@@ -238,7 +298,28 @@ def _accumulate_eval(total, out):
     return {k: total[k] + out[k] for k in total}
 
 
-def _finish_eval_metrics(total) -> dict:
+def _sum_across_ranks(total, device) -> dict:
+    """Every rank's totals summed (JAX's process_allgather and sum over
+    hosts), as float64 on `device` (NCCL reduces only on the card)."""
+    keys = sorted(total)
+    flat = torch.cat([torch.as_tensor(total[k], dtype=torch.float64).reshape(-1)
+                      for k in keys]).to(device)
+    dist.all_reduce(flat)
+    flat = flat.cpu().numpy()
+    out, at = {}, 0
+    for k in keys:
+        shape = np.shape(total[k])
+        size = int(np.prod(shape))
+        out[k] = flat[at:at + size].reshape(shape)
+        at += size
+    return out
+
+
+def _finish_eval_metrics(total, device=None) -> dict:
+    """Totals -> metrics; under a process group (`device` the rank's) the
+    totals are summed across ranks first."""
+    if device is not None and distributed():
+        total = _sum_across_ranks(total, device)
     w = max(float(total["weight"]), 1.0)
     tp, fp, fn = total["topo_f1"]
     return {
@@ -269,24 +350,36 @@ def run_validation(config, model, loader) -> dict:
 
 class Trainer:
     """Epoch loop, validation, checkpoints and logging for one model on one
-    device. Dropout draws from a torch.Generator on that device seeded with
-    0. `logger` (utils/logging.py::MetricsLogger or None) receives the
+    device, and under an initialised process group for this rank of a
+    data-parallel run (the module docstring). Dropout draws from a
+    torch.Generator on that device seeded with the rank (0 alone);
+    `deterministic` turns dropout off (the parity checks). `logger`
+    (utils/logging.py::MetricsLogger or None) receives, on rank 0, the
     train_* aux of every logged step and the paths of the validation
     panels. `history` holds the aux of every step taken (the JAX trainer
     keeps only the logged ones)."""
 
     def __init__(self, config, model, output_dir: str, steps_per_epoch: int,
-                 device="cuda", log_every: int = 50, logger=None):
+                 device="cuda", log_every: int = 50, logger=None, deterministic: bool = False):
         self.config = config
         self.output_dir = output_dir
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.log_every = log_every
         self.logger = logger
+        self.rank = dist.get_rank() if distributed() else 0
+        self.forward_model = None
+        if distributed():
+            # the SAM decoder's iou head is computed and dropped: it gets no
+            # gradient, which DDP accepts only when told to look for it
+            self.forward_model = DistributedDataParallel(
+                self.model, device_ids=[self.device] if self.device.type == "cuda" else None,
+                find_unused_parameters=bool(self.model.use_sam_decoder))
         self.optimizer = build_optimizer(config, self.model)
-        self._train_step = make_train_step(config, self.model, self.optimizer, steps_per_epoch)
+        self._train_step = make_train_step(config, self.model, self.optimizer, steps_per_epoch,
+                                           self.forward_model, deterministic)
         self._eval_step = make_eval_step(config, self.model)
-        self.generator = torch.Generator(device=self.device).manual_seed(0)
+        self.generator = torch.Generator(device=self.device).manual_seed(self.rank)
         self.step = 0  # train steps taken, skipped ones included
         self.history: list = []
 
@@ -309,6 +402,8 @@ class Trainer:
             self.history.append(aux)
             if i % self.log_every == 0:
                 logs.append(aux)
+                if self.rank:
+                    continue
                 if self.logger is not None:
                     self.logger.log({f"train_{k}": v for k, v in aux.items()}, step=self.step)
                 print(f"epoch {epoch} step {i}/{len(loader)} loss {aux['loss']:.4f} mask "
@@ -323,9 +418,9 @@ class Trainer:
         total = None
         for n, batch in enumerate(loader):
             total = _accumulate_eval(total, self._eval_step(batch))
-            if n == 0 and viz_count > 0:
+            if n == 0 and viz_count > 0 and self.rank == 0:
                 self._save_val_viz(batch, epoch or 0, viz_count)
-        return {} if total is None else _finish_eval_metrics(total)
+        return {} if total is None else _finish_eval_metrics(total, self.device)
 
     @torch.no_grad()
     def _save_val_viz(self, batch, epoch: int, count: int) -> list:
@@ -339,11 +434,17 @@ class Trainer:
 
     def save_checkpoint(self, epoch: int) -> str:
         """The full train state (weights, Adam's moments and count, step)
-        as one torch.save file; returns its path."""
-        os.makedirs(self.output_dir, exist_ok=True)
+        as one torch.save file, written by rank 0 (every rank holds the
+        same state; under a process group the ranks wait for the file);
+        returns its path."""
         path = os.path.join(self.output_dir, f"ckpt_epoch_{epoch}.pt")
-        torch.save({"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                    "step": self.step, "epoch": epoch}, path)
+        if self.rank == 0:
+            os.makedirs(self.output_dir, exist_ok=True)
+            torch.save({"model": self.model.state_dict(),
+                        "optimizer": self.optimizer.state_dict(),
+                        "step": self.step, "epoch": epoch}, path)
+        if distributed():
+            dist.barrier()
         return path
 
     def restore(self, path: str) -> int:

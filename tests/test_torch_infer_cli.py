@@ -311,12 +311,17 @@ def test_infer_cli_takes_the_ports_own_checkpoint(fixture, jax_infer, tmp_path, 
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             infer.main(["--config", fixture["cfg"], "--checkpoint", pt])
-    for key, value in (("DP_SHARDS", 2), ("SP_SHARDS", 1)):
+    # the multi-device keys build a mesh of CUDA devices: with none visible
+    # (--device cpu) they raise and name the count, where JAX would run on
+    # one device; both together raise as JAX asserts
+    for keys, error, match in ((dict(DP_SHARDS=2), RuntimeError, "2 CUDA devices, but 0"),
+                               (dict(SP_SHARDS=1), RuntimeError, "1 CUDA devices, but 0"),
+                               (dict(DP_SHARDS=2, SP_SHARDS=2), ValueError, "exclusive")):
         values = read_flat_yaml(fixture["cfg"])
-        values[key] = value
-        cfg = str(tmp_path / f"{key}.yaml")
+        values.update(keys)
+        cfg = str(tmp_path / f"{'_'.join(keys)}.yaml")
         write_flat_yaml(cfg, values)
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(error, match=match):
             infer.main(["--config", cfg, "--checkpoint", pt, "--device", "cpu"])
 
 
