@@ -240,6 +240,9 @@ T913_LIBRARY = {  # kernel -> the PyTorch expression timed as its library_ms
     "oversized_sublane_block": "F.pad(x, cols).view(B, R, nJ, win, C).sum(3)",
     "batched_nt": "torch.bmm(a, b.transpose(1, 2))",
 }
+# T13 beyond the tool's [12, 256, 64]: N 196 (a 14 x 14 window: 8-byte
+# stores), and 64 heads (1024 items: the looped grid's blocks walk ~8 each)
+T13_MORE = ((12, 196), (64, 256))
 # phase 19: labels to a trained model. SPACENET_CONFIG as it stands (ViT-B
 # 256 px, batch 64, bf16, FLASH_ATTENTION: the eager encoder through K5 in
 # training, FUSED_ENCODER in inference) over a generated SpaceNet-format
@@ -351,6 +354,33 @@ def device_ms(fn, reps: int = 50):
                   f"{reps} calls (expected {per_call * reps})", flush=True)
         total += e.self_device_time_total / e.count * per_call
     return total / 1e3 if total > 0 else None
+
+
+def host_us(fns, reps: int = 100, rounds: int = 5, dev: str = "cuda") -> list:
+    """Microseconds a call of each of fns on the host's clock: in each
+    round, for each fn in turn, time.perf_counter over reps calls launched
+    back to back and one synchronise, inside the span (a call whose kernel
+    outlasts its host side reads the kernel's rate); the median over the
+    rounds. The fns take turns, so a drift of the shared host reaches each
+    alike."""
+    import torch
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    for fn in fns:
+        fn()
+    sync()
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, t_fn in zip(fns, times):
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync()
+            t_fn.append((time.perf_counter() - t) / reps * 1e6)
+    return [statistics.median(t_fn) for t_fn in times]
 
 
 def with_device_time(row: dict, fn, dev: str = "cuda") -> dict:
@@ -2884,17 +2914,20 @@ def run_t58_tools(dev: str = "cuda", block: dict | None = None, probe: dict | No
 
 def check_t913_kernels(dev: str = "cuda", batch: int = 2, rows: int = 32, width: int = 32,
                        channels: int = 256, win: int = 14, heads: int = 12, tokens: int = 256,
-                       depth: int = 64):
+                       depth: int = 64, more=T13_MORE):
     """Phase 15a: T9-T13 at their tools' shapes against their plain versions
     in fp32: T9 (x [2, 32, 32, 256] in blocks of 14 rows, out 42 rows) and
     T10 (out exactly 32 rows) bit-equal, T10 also through a view of 32 rows
     of a buffer whose rows past H hold NaN, which must stay NaN; T11 (x [2,
     14, 32, 256] -> [2, 14, 3, 256]) within 1e-4, T12 bit-equal to T11;
-    T13 (a, b [12, 256, 64] bf16) looped and batched within TOL (1 +
-    |ref|), bit-equal to each other. Library calls: F.pad + 1 (T9), x * 2
-    (T10), F.pad and a sum over the window (T11, T12), torch.bmm (T13).
-    Each row also carries `device_ms`, the kernels' own time from the
-    profiler: these kernels are bound by their launches."""
+    T13 (a, b [12, 256, 64] bf16, then each (heads, N) of `more`) looped and
+    batched within TOL (1 + |ref|), bit-equal to each other, the looped grid
+    min(SMs, items) blocks and the batched one a block per item. Library
+    calls: F.pad + 1 (T9), x * 2 (T10), F.pad and a sum over the window
+    (T11, T12), torch.bmm (T13). Each row also carries `device_ms`, the
+    kernels' own time from the profiler, and `host_us` / `library_host_us`,
+    a call's time on the host's clock (host_us): these kernels are bound by
+    their launches."""
     import torch
 
     from sam_road_tpu_torch.tools import probe_nondiv_blocks as pnb, repro_aot_crash as rac
@@ -2902,8 +2935,6 @@ def check_t913_kernels(dev: str = "cuda", batch: int = 2, rows: int = 32, width:
     gen = torch.Generator(device=dev).manual_seed(26)
     x_rows = torch.randn((batch, rows, width, channels), generator=gen, device=dev)
     x_win = torch.randn((batch, win, width, channels), generator=gen, device=dev)
-    a, b = (torch.randn((heads, tokens, depth), generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
     out_rows = -(-rows // win) * win
     nJ = -(-width // win)
     affine = 2.0 * batch * out_rows * width * channels  # T9: a multiply and an add an output
@@ -2927,13 +2958,29 @@ def check_t913_kernels(dev: str = "cuda", batch: int = 2, rows: int = 32, width:
             lambda x: pnb.window_colsum_plain(x, win), (x_win,), pnb.SUM_TOL, 0.0,
             [lambda: pnb.inkernel_pad_loop(x_win, win)], sums, PEAK_FP32),
     }
-    for shape in rac.SHAPES:
-        other = [lambda s=s: rac.batched_nt(a, b, looped=s == "looped")
-                 for s in rac.SHAPES if s != shape]
-        cases[f"batched_nt {shape}"] = (
-            "batched_nt", lambda a, b, s=shape: rac.batched_nt(a, b, looped=s == "looped"),
-            rac.batched_nt_plain, (a, b), TOL, TOL, other, 2.0 * heads * tokens * tokens * depth,
-            PEAK_FLOPS)
+    grids = {}
+    for h, n in ((heads, tokens),) + tuple(more):
+        a, b = (torch.randn((h, n, depth), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        where = "" if (h, n) == (heads, tokens) else f" [{h}, {n}, {depth}]"
+        for shape in rac.SHAPES:
+            other = [lambda a=a, b=b, s=s: rac.batched_nt(a, b, looped=s == "looped")
+                     for s in rac.SHAPES if s != shape]
+            cases[f"batched_nt {shape}{where}"] = (
+                "batched_nt", lambda a, b, s=shape: rac.batched_nt(a, b, looped=s == "looped"),
+                rac.batched_nt_plain, (a, b), TOL, TOL, other, 2.0 * h * n * n * depth,
+                PEAK_FLOPS)
+        if dev == "cuda":
+            grids[(h, n)] = {s: rac.batched_nt_grid(h, n, s == "looped") for s in rac.SHAPES}
+    if dev == "cuda":  # the looped grid: one block an SM at most, the batched one an item each
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for (h, n), got in grids.items():
+            items = h * (-(-n // 64)) ** 2
+            print(f"batched_nt [{h}, {n}, {depth}]: {items} items; grid {got} on {sms} SMs",
+                  flush=True)
+            if got != {"looped": min(sms, items), "batched": items}:
+                raise SystemExit(f"batched_nt [{h}, {n}] launches grids {got}, expected looped "
+                                 f"min({sms}, {items}) and batched {items}")
     results = {}
     for label, (name, kern, plain, args, atol, rtol, equal, flops, peak) in cases.items():
         got = kern(*args)
@@ -2948,11 +2995,14 @@ def check_t913_kernels(dev: str = "cuda", batch: int = 2, rows: int = 32, width:
         row = timing_row(name, args, got, lambda: kern(*args), lambda: plain(*args), flops=flops,
                          heads=heads, win=win, peak=peak)
         row["device_ms"] = device_ms(lambda: kern(*args)) if dev == "cuda" else None
+        with torch.no_grad():
+            row["host_us"], row["library_host_us"] = host_us(
+                [lambda: kern(*args), library_call(name, args, win=win, heads=heads)], dev=dev)
         ok = same and within and bool(torch.isfinite(got.float()).all())
         print(f"kernel {label}: shape {tuple(got.shape)} bit-equal to {len(equal)} other "
               f"call(s) {same} max_abs_err {max_abs:.3e} (atol {atol}, rtol {rtol}) "
-              f"{fmt_times(row)} device_ms {row['device_ms']} {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"{fmt_times(row)} device_ms {row['device_ms']} host_us {row['host_us']:.2f} "
+              f"(library {row['library_host_us']:.2f}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"kernel {label} disagrees with its plain version or its variants")
         results[label] = dict(max_abs_err=max_abs, library=T913_LIBRARY[name], **row)
@@ -2967,7 +3017,93 @@ def check_t913_kernels(dev: str = "cuda", batch: int = 2, rows: int = 32, width:
     if not (exact and guard):
         raise SystemExit("nondiv_out_exact wrote past its output's rows or disagrees with plain")
     results["nondiv_out_exact"]["guard_rows_untouched"] = guard
+    if dev == "cuda":
+        results["nondiv_out_exact"]["host_split"] = t913_host_split(x_rows)
+        results["batched_nt looped"]["host_split"] = t913_host_split(*cases["batched_nt looped"][3])
     return results
+
+
+def t913_host_split(*args, reps: int = 100) -> dict:
+    """Where a call of T10 (args: x) or T13 looped (args: a, b) spends its
+    host time: each step of the wrapper's CUDA path alone, in the wrapper's
+    order, as microseconds a call on the host's clock (`alone_us`: host_us,
+    each step's calls in a row) and from torch.profiler's CPU events
+    (`profiler_us`: a record_function range around each step, reps calls
+    of the sequence; the range's own cost is the "range" step's reading,
+    and the profiler's per-op overhead is inside). Three steps are what
+    the wrappers ran before they were cut: "torch.empty" (now empty_like /
+    new_empty), "out checks" (now only for an `out` the caller gave) and
+    "stream (torch.cuda)" (before _build.stream_of read the raw stream).
+    Nothing here is counted as a launch."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.tools import probe_nondiv_blocks as pnb
+
+    counts = collections.Counter()
+    x = args[0]
+    stream = _build.stream_of(x)
+    lib = _build.kernels()
+
+    def count():
+        counts["split"] += 1
+
+    if len(args) == 1:  # T10: 2 x into a new tensor of x's shape
+        B, H, W, C = x.shape
+        out = torch.empty_like(x)
+        steps = {
+            "on_cpu": lambda: _build.on_cpu(x),
+            "require x": lambda: _build.require(x, "x", torch.float32),
+            "empty_like": lambda: torch.empty_like(x),
+            "torch.empty": lambda: torch.empty((B, H, W, C), dtype=torch.float32,
+                                               device=x.device),
+            "out checks": lambda: pnb.check_out(out, x, H, "split"),
+            "kernels()": lambda: _build.kernels().samroad_row_block_affine,
+            "stream_of": lambda: _build.stream_of(x),
+            "stream (torch.cuda)": lambda: (torch.cuda.current_device(),
+                                            torch.cuda.current_stream(x.device).cuda_stream),
+            "ctypes launch": lambda: lib.samroad_row_block_affine(
+                x.data_ptr(), out.data_ptr(), B, H, H, W * C, out.stride(0), 2.0, 0.0, stream),
+            "check": lambda: _build.check(0, "split"),
+            "count": count,
+        }
+    else:  # T13 looped
+        a, b = args
+        heads, N, D = a.shape
+        out = a.new_empty((heads, N, N))
+        steps = {
+            "on_cpu": lambda: _build.on_cpu(a),
+            "require a, b": lambda: (_build.require(a, "a", torch.bfloat16),
+                                     _build.require(b, "b", torch.bfloat16, a.shape)),
+            "new_empty": lambda: a.new_empty((heads, N, N)),
+            "torch.empty": lambda: torch.empty((heads, N, N), dtype=a.dtype, device=a.device),
+            "kernels()": lambda: _build.kernels().samroad_batched_nt,
+            "stream_of": lambda: _build.stream_of(a),
+            "stream (torch.cuda)": lambda: (torch.cuda.current_device(),
+                                            torch.cuda.current_stream(a.device).cuda_stream),
+            "ctypes launch": lambda: lib.samroad_batched_nt(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), heads, N, D, 1, stream),
+            "check": lambda: _build.check(0, "split"),
+            "count": count,
+        }
+    steps = {"range": lambda: None, **steps}
+    split = {name: dict(alone_us=us) for name, us in zip(steps, host_us(list(steps.values())))}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            for name, f in steps.items():
+                with record_function("split " + name):
+                    f()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.key.startswith("split ") and e.key[6:] in split:
+            split[e.key[6:]]["profiler_us"] = e.cpu_time_total / e.count
+    print("host split " + ("T10" if len(args) == 1 else "T13 looped") + ": " + ", ".join(
+        f"{k} {v['alone_us']:.2f} / {v.get('profiler_us', float('nan')):.2f}"
+        for k, v in split.items()) + " (us a call alone / in profiler ranges)", flush=True)
+    return split
 
 
 def run_t913_tools(dev: str = "cuda", nondiv: dict | None = None, repro: dict | None = None):

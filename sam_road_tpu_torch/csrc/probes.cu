@@ -31,12 +31,15 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace samroad_mma;
 
 namespace {
 
@@ -45,6 +48,7 @@ constexpr int BQ = 64, BKV = 64;
 constexpr int WARPS = BQ / 16;
 constexpr int THREADS = WARPS * 32;
 constexpr int LDT = D + 8;     // bf16 tile row stride
+constexpr int MAX_DEVICES = 64;
 
 struct Operand {
   const bf16* p;               // element (0, 0, 0) of the tensor
@@ -120,33 +124,47 @@ rowmax_dot_kernel(Operand qa, Operand kb, bf16* __restrict__ out, int N) {
 // writes are dropped (Q3). On the card either access would be undefined
 // behaviour, so both are guards on the address: a row past H is never read
 // (T9's pad rows are 0 * 1 + 1 = 1.0, as on the TPU) and a row past
-// out_rows is never written (T10's rows past H stay as they were).
+// out_rows is never written (T10's rows past H stay as they were). The
+// function does not depend on win (the caller's out_rows carries it), so
+// the kernel has no row blocks.
 //
 // What bounds it: bytes, 4.85 MB (T9) and 4.19 MB (T10) at the tool's
-// shapes, 1.3-1.5 us at the HBM peak; one launch of some 50 blocks is
-// bound by its latency first. Each block takes one float4 column strip of
-// a row for every row of its row block; the multiply and add are rounded
-// apart (no fma), as the plain version's two operations are.
-constexpr int AFFINE_THREADS = 128;
+// shapes, 1.45 / 1.25 us at the HBM peak. With so little work a launch is
+// over after one memory latency or two, so the design is about having every
+// load in flight at once: a block takes AFFINE_ROWS rows of one image and
+// one float4 of each a thread (336 blocks of 256 threads for T9, 2.5 an
+// SM), and a thread issues all its loads before its first store. The
+// multiply and add are rounded apart (no fma), as the plain version's two
+// operations are.
+constexpr int AFFINE_THREADS = 256;
+constexpr int AFFINE_ROWS = 2;  // rows a thread carries
 constexpr int AFFINE_COLS = AFFINE_THREADS * 4;  // floats of a row a block covers
 
 __global__ void __launch_bounds__(AFFINE_THREADS)
 row_block_affine_kernel(const float* __restrict__ x, float* __restrict__ y, int H, int out_rows,
-                        int row, int64_t y_batch, int win, float scale, float shift) {
-  const int b = blockIdx.z, r0 = blockIdx.y * win;
+                        int row, int64_t y_batch, float scale, float shift) {
+  const int b = blockIdx.z, r0 = blockIdx.y * AFFINE_ROWS;
   const int c = blockIdx.x * AFFINE_COLS + threadIdx.x * 4;
   if (c >= row) return;
   const float* xb = x + (int64_t)b * H * row + c;
   float* yb = y + (int64_t)b * y_batch + c;
-  for (int r = r0; r < r0 + win; ++r) {
-    if (r >= out_rows) break;  // the partial block's rows past the output: never written
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < H) v = *reinterpret_cast<const float4*>(xb + (int64_t)r * row);  // never read past H
-    v.x = __fadd_rn(__fmul_rn(v.x, scale), shift);
-    v.y = __fadd_rn(__fmul_rn(v.y, scale), shift);
-    v.z = __fadd_rn(__fmul_rn(v.z, scale), shift);
-    v.w = __fadd_rn(__fmul_rn(v.w, scale), shift);
-    *reinterpret_cast<float4*>(yb + (int64_t)r * row) = v;
+  float4 v[AFFINE_ROWS];
+#pragma unroll
+  for (int i = 0; i < AFFINE_ROWS; ++i) {  // every load first; never a row at or past H
+    const int r = r0 + i;
+    v[i] = r < H && r < out_rows ? *reinterpret_cast<const float4*>(xb + (int64_t)r * row)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < AFFINE_ROWS; ++i) {  // never a row at or past out_rows
+    const int r = r0 + i;
+    if (r >= out_rows) break;
+    float4 w = v[i];
+    w.x = __fadd_rn(__fmul_rn(w.x, scale), shift);
+    w.y = __fadd_rn(__fmul_rn(w.y, scale), shift);
+    w.z = __fadd_rn(__fmul_rn(w.z, scale), shift);
+    w.w = __fadd_rn(__fmul_rn(w.w, scale), shift);
+    *reinterpret_cast<float4*>(yb + (int64_t)r * row) = w;
   }
 }
 
@@ -211,60 +229,115 @@ window_colsum_kernel(const float* __restrict__ x, float* __restrict__ out, int W
 // bodies compute it as a Python loop of 2-D dots over the heads
 // (looped_kernel) and as one dot_general with the head as its batch
 // dimension (batched_kernel, which crashed the TPU's compile helper). Here
-// both are launch shapes of one tile routine: `looped` launches one block
-// per 64 x 64 output tile and walks the heads inside it (16 blocks at the
-// tool's [12, 256, 64]), batched adds the head as a grid dimension (192
-// blocks on the card's 132 SMs). Each tile: the two 64-row operand tiles
-// through shared memory (load_rows, zero past N), 4 warps of 16 rows, wmma
-// 16 x 16 x 16 (bf16 in, fp32 accumulate) over D in one order, each 16 x 16
-// result through the warp's staging tile to bf16 (round to nearest even),
-// stores guarded at N; so the two shapes are bit-equal.
+// both are launch shapes of one kernel over the items (head, 64 x 64 output
+// tile), each block walking items blockIdx.x, + gridDim.x, ...: `looped` is
+// a persistent grid of min(SMs, items) blocks, so one program takes several
+// heads' tiles in turn, as looped_kernel unrolls the heads in one program;
+// batched is one block per item (192 at the tool's [12, 256, 64]). Both run
+// one tile routine with one order of accumulation over D, so they are
+// bit-equal.
 //
 // What bounds it: bytes, 2.36 MB against 0.10 GFLOP at the tool's shapes
-// (0.70 us at the HBM peak, 0.10 us at the bf16 tensor-core peak).
-__device__ __forceinline__ void nt_tile(const Operand& a, const Operand& b, bf16* __restrict__ out,
-                                        int h, int q0, int k0, int N, bf16 (*As)[LDT],
-                                        bf16 (*Bs)[LDT], float (*stage)[16][16], int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  const int r = lane & 15, half = lane >> 4;
-  load_rows(As, a, h, q0, N, tid);
-  load_rows(Bs, b, h, k0, N, tid);
-  __syncthreads();
-  const int n = q0 + warp * 16 + r;
-#pragma unroll
-  for (int t = 0; t < BKV / 16; ++t) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int d = 0; d < D; d += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, &As[warp * 16][d], LDT);
-      wmma::load_matrix_sync(fb, &Bs[t * 16][d], LDT);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(&stage[warp][0][0], acc, 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int m = k0 + t * 16 + half * 8 + c;
-      if (n < N && m < N)
-        out[((int64_t)h * N + n) * N + m] = __float2bfloat16_rn(stage[warp][r][half * 8 + c]);
-    }
-    __syncwarp();
+// (0.70 us at the HBM peak, 0.10 us at the bf16 tensor-core peak), and
+// 1.57 MB of the bytes are the output. At depth 64 an item is 4 k-steps of
+// mma.sync m16n8k16 (fp32 accumulators in registers, operands by ldmatrix);
+// wgmma's rate would buy nothing against a tenth of a microsecond of math.
+// What matters is the memory: the operand tiles arrive by cp.async (rows
+// past N zero-filled, never read), a walking block prefetches its next
+// item's tiles into the second buffer while it computes the current one,
+// and the result is rounded once to bf16 pairs, staged in shared memory
+// (rows padded against bank conflicts) and written out a row at a time,
+// neighbouring threads on neighbouring addresses, 16 bytes a thread where N
+// % 8 == 0 (then 8, 4 or 2 bytes as N allows: output rows start 2N bytes
+// apart). No store reaches past [heads, N, N].
+constexpr int NT = 64;            // output tile side
+constexpr int NT_THREADS = 128;   // 4 warps of 16 tile rows
+constexpr int NT_LD = D + 8;      // 144-byte rows: ldmatrix and the stage conflict-free
+
+struct NtSmem {
+  bf16 a[2][NT][NT_LD], b[2][NT][NT_LD];  // two buffers of the operand tiles
+  bf16 out[NT][NT_LD];                     // the bf16 result tile
+};  // 46,080 bytes: static shared memory
+
+template <int VEC> struct NtVec;  // VEC bf16 values as one store
+template <> struct NtVec<8> { typedef uint4 T; };
+template <> struct NtVec<4> { typedef uint2 T; };
+template <> struct NtVec<2> { typedef uint32_t T; };
+template <> struct NtVec<1> { typedef unsigned short T; };
+
+// item's operand tiles into buffer buf (one commit group per call)
+__device__ __forceinline__ void nt_load(NtSmem& s, int buf, const bf16* __restrict__ a,
+                                        const bf16* __restrict__ b, int64_t h, int q0, int k0,
+                                        int N) {
+  for (int e = threadIdx.x; e < 2 * NT * (D / 8); e += NT_THREADS) {
+    const int op = e / (NT * (D / 8)), r = (e / (D / 8)) % NT, c = (e % (D / 8)) * 8;
+    const int n = (op ? k0 : q0) + r;
+    const bf16* src = (op ? b : a) + (h * N + (n < N ? n : 0)) * D + c;
+    cp_async<16>(op ? &s.b[buf][r][c] : &s.a[buf][r][c], src, n < N);
   }
-  __syncthreads();  // both tiles consumed before the next head's loads
+  cp_async_commit();
 }
 
-__global__ void __launch_bounds__(THREADS)
-batched_nt_kernel(Operand a, Operand b, bf16* __restrict__ out, int heads, int N, int looped) {
-  __shared__ __align__(128) bf16 As[BQ][LDT];
-  __shared__ __align__(128) bf16 Bs[BKV][LDT];
-  __shared__ __align__(128) float stage[WARPS][16][16];
-  const int q0 = blockIdx.x * BQ, k0 = blockIdx.y * BKV;
-  const int h_end = looped ? heads : blockIdx.z + 1;
-  for (int h = looped ? 0 : blockIdx.z; h < h_end; ++h)
-    nt_tile(a, b, out, h, q0, k0, N, As, Bs, stage, threadIdx.x);
+template <int VEC>
+__global__ void __launch_bounds__(NT_THREADS)
+batched_nt_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b, bf16* __restrict__ out,
+                  int N, int side, int items) {
+  __shared__ __align__(128) NtSmem s;
+  typedef typename NtVec<VEC>::T V;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3, lr = lane & 7, lm = lane >> 3;
+  const int tiles = side * side;
+  int item = blockIdx.x;
+  if (item < items)
+    nt_load(s, 0, a, b, item / tiles, item % tiles / side * NT, item % tiles % side * NT, N);
+  for (int buf = 0; item < items; item += gridDim.x, buf ^= 1) {
+    const int next = item + gridDim.x;
+    if (next < items)  // the walking block's next item, into the other buffer
+      nt_load(s, buf ^ 1, a, b, next / tiles, next % tiles / side * NT,
+              next % tiles % side * NT, N);
+    else
+      cp_async_commit();  // an empty group: the wait below counts alike
+    cp_async_wait<1>();
+    __syncthreads();  // this item's tiles are in
+
+    const int64_t h = item / tiles;
+    const int q0 = item % tiles / side * NT, k0 = item % tiles % side * NT;
+    float acc[NT / 8][4];
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t fa[4];
+      ldmatrix_x4(fa, &s.a[buf][warp * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+#pragma unroll
+      for (int j = 0; j < NT / 8; j += 2) {
+        uint32_t fb[4];  // keys 8j.. (depth kk*16, +8), then keys 8(j+1).. (the same)
+        ldmatrix_x4(fb, &s.b[buf][(j + (lm >> 1)) * 8 + lr][kk * 16 + (lm & 1) * 8]);
+        mma_bf16(acc[j], fa, fb[0], fb[1]);
+        mma_bf16(acc[j + 1], fa, fb[2], fb[3]);
+      }
+    }
+    // the warp's 16 rows to bf16 pairs in the stage, then out a row at a time
+    const int r0 = warp * 16;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(&s.out[r0 + g][j * 8 + 2 * tq]) =
+          pack_bf16(acc[j][0], acc[j][1]);
+      *reinterpret_cast<uint32_t*>(&s.out[r0 + g + 8][j * 8 + 2 * tq]) =
+          pack_bf16(acc[j][2], acc[j][3]);
+    }
+    __syncwarp();
+    constexpr int PER_ROW = NT / VEC;  // stores a tile row
+    bf16* o = out + (h * N + q0) * N + k0;
+#pragma unroll 4
+    for (int e = lane; e < 16 * PER_ROW; e += 32) {
+      const int r = r0 + e / PER_ROW, c = (e % PER_ROW) * VEC;
+      // N % VEC == 0 and c % VEC == 0: a vector lies wholly inside or past column N
+      if (q0 + r < N && k0 + c < N)
+        *reinterpret_cast<V*>(o + (int64_t)r * N + c) = *reinterpret_cast<const V*>(&s.out[r][c]);
+    }
+    __syncthreads();  // buffer buf and the stage are free for the next item
+  }
 }
 
 }  // namespace
@@ -291,17 +364,17 @@ int samroad_rowmax_dot(const void* a, const void* b, void* out, int B, int N, in
 // y = (row r of x if r < H, else 0) * scale + shift for rows r < out_rows
 // of each image, x fp32 [B, H, row] contiguous, y fp32 [B, out_rows, row]
 // with images y_batch elements apart (>= out_rows row; a view of a larger
-// buffer leaves the rows between untouched), in blocks of win rows; row and
-// y_batch multiples of 4 (16-byte accesses).
+// buffer leaves the rows between untouched); row and y_batch multiples of 4
+// (16-byte accesses).
 int samroad_row_block_affine(const void* x, void* y, int B, int H, int out_rows, int row,
-                             int y_batch, int win, float scale, float shift, void* stream) {
-  if (B <= 0 || H <= 0 || out_rows <= 0 || row <= 0 || win <= 0 || row % 4 || y_batch % 4 ||
-      (int64_t)y_batch < (int64_t)out_rows * row || B > 65535)
+                             int64_t y_batch, float scale, float shift, void* stream) {
+  if (B <= 0 || H <= 0 || out_rows <= 0 || row <= 0 || row % 4 || y_batch % 4 ||
+      y_batch < (int64_t)out_rows * row || B > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((row + AFFINE_COLS - 1) / AFFINE_COLS, (out_rows + win - 1) / win, B);
+  dim3 grid((row + AFFINE_COLS - 1) / AFFINE_COLS, (out_rows + AFFINE_ROWS - 1) / AFFINE_ROWS, B);
   row_block_affine_kernel<<<grid, AFFINE_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float*>(x), reinterpret_cast<float*>(y), H, out_rows, row, y_batch,
-      win, scale, shift);
+      scale, shift);
   return (int)cudaGetLastError();
 }
 
@@ -327,18 +400,46 @@ int samroad_window_colsum(const void* x, void* out, int B, int R, int W, int C, 
   return (int)cudaGetLastError();
 }
 
+// the blocks batched_nt launches for [heads, N, 64]: one per item (head,
+// 64 x 64 output tile), or, looped != 0, min(SMs of the current device,
+// items) walking the items; the SM count is read once per device
+int samroad_batched_nt_grid(int heads, int N, int looped, int* grid) {
+  static int sms[MAX_DEVICES] = {};
+  if (heads <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t side = (N + NT - 1) / NT, items = heads * side * side;
+  if (items > INT_MAX) return (int)cudaErrorInvalidValue;
+  *grid = (int)items;
+  if (!looped) return 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    const int attr = (int)cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (attr) return attr;
+  }
+  *grid = (int)(items < sms[dev] ? items : sms[dev]);
+  return 0;
+}
+
 // out [heads, N, N] bf16 = a[h] . b[h]^T, a and b bf16 [heads, N, depth]
-// contiguous, depth 64; looped != 0: one block per 64 x 64 output tile that
-// walks the heads, else one block per (tile, head).
+// contiguous, depth 64; the grid as samroad_batched_nt_grid gives it
 int samroad_batched_nt(const void* a, const void* b, void* out, int heads, int N, int depth,
                        int looped, void* stream) {
-  if (heads <= 0 || N <= 0 || depth != D || (!looped && heads > 65535))
-    return (int)cudaErrorInvalidValue;
-  const Operand oa{reinterpret_cast<const bf16*>(a), D, (int64_t)N * D, 0};
-  const Operand ob{reinterpret_cast<const bf16*>(b), D, (int64_t)N * D, 0};
-  dim3 grid((N + BQ - 1) / BQ, (N + BKV - 1) / BKV, looped ? 1 : heads);
-  batched_nt_kernel<<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      oa, ob, reinterpret_cast<bf16*>(out), heads, N, looped);
+  int grid = 0;
+  if (depth != D) return (int)cudaErrorInvalidValue;
+  if (const int e = samroad_batched_nt_grid(heads, N, looped, &grid)) return e;
+  const int side = (N + NT - 1) / NT, items = heads * side * side;
+  const bf16* pa = reinterpret_cast<const bf16*>(a);
+  const bf16* pb = reinterpret_cast<const bf16*>(b);
+  bf16* po = reinterpret_cast<bf16*>(out);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (N % 8 == 0)
+    batched_nt_kernel<8><<<grid, NT_THREADS, 0, s>>>(pa, pb, po, N, side, items);
+  else if (N % 4 == 0)
+    batched_nt_kernel<4><<<grid, NT_THREADS, 0, s>>>(pa, pb, po, N, side, items);
+  else if (N % 2 == 0)
+    batched_nt_kernel<2><<<grid, NT_THREADS, 0, s>>>(pa, pb, po, N, side, items);
+  else
+    batched_nt_kernel<1><<<grid, NT_THREADS, 0, s>>>(pa, pb, po, N, side, items);
   return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,7 @@ from sam_road_tpu_torch._native import PKG_DIR, build_and_load
 
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "probes.cu")
-HEADERS = ("mma_bf16.cuh",)  # included by gemm.cu and the attention kernels
+HEADERS = ("mma_bf16.cuh",)  # included by gemm.cu, the attention kernels and probes.cu
 # --ptxas-options=-v: each instance's registers and spills, in the build log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v"]
@@ -34,6 +34,7 @@ launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "samroad_ln_dense": [_P] * 7 + [_I] * 3 + [_P],
@@ -53,9 +54,10 @@ _SIGNATURES = {
     "samroad_relpos_attention_table": [_P] * 6 + [_I] * 5 + [_P],
     "samroad_merge_dense": [_P] * 3 + [_I] * 3 + [_P],
     "samroad_rowmax_dot": [_P] * 3 + [_I] * 7 + [_P],
-    "samroad_row_block_affine": [_P] * 2 + [_I] * 6 + [_F] * 2 + [_P],
+    "samroad_row_block_affine": [_P] * 2 + [_I] * 4 + [_L] + [_F] * 2 + [_P],
     "samroad_window_colsum": [_P] * 2 + [_I] * 6 + [_P],
     "samroad_batched_nt": [_P] * 3 + [_I] * 4 + [_P],
+    "samroad_batched_nt_grid": [_I] * 3 + [ctypes.POINTER(_I)],
 }
 
 # head dims the attention kernels are instantiated at (window_attention.cu,
@@ -98,23 +100,27 @@ def check(err: int, name: str) -> None:
 def stream_of(t) -> int:
     """The current stream of t's device. A kernel launches on the current
     device, so a tensor on another card raises (callers that drive several
-    cards enter torch.cuda.device(...) per shard, parallel/mesh.py)."""
+    cards enter torch.cuda.device(...) per shard, parallel/mesh.py). Reads
+    the device and the raw stream handle from torch._C, the calls under
+    torch.cuda.current_device() / current_stream() (and what PyTorch's
+    own compiled code reads its stream with), without the Stream object
+    the public call builds: a few microseconds a launch."""
     import torch
 
-    if t.device.index != torch.cuda.current_device():
-        raise RuntimeError(f"tensor on {t.device} but the current device is "
-                           f"cuda:{torch.cuda.current_device()}")
-    return torch.cuda.current_stream(t.device).cuda_stream
+    current = torch._C._cuda_getDevice()
+    if t.get_device() != current:
+        raise RuntimeError(f"tensor on {t.device} but the current device is cuda:{current}")
+    return torch._C._cuda_getCurrentRawStream(current)
 
 
 def require(t, name: str, dtype, shape=None) -> None:
     """Raise unless `t` is a contiguous, 16-byte aligned CUDA tensor of
     `dtype` (and `shape`, where given): what the kernels take."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
@@ -160,8 +166,8 @@ def recompute_vjp(ctx, plain, g, *static):
 def on_cpu(t) -> bool:
     """True for a CPU tensor (take the plain version); False for CUDA
     (launch the kernel); raise for any other device."""
+    if t.is_cuda:
+        return False
     if t.device.type == "cpu":
         return True
-    if t.device.type == "cuda":
-        return False
     raise ValueError(f"no kernel or plain version for device {t.device}")

@@ -16,7 +16,9 @@ and its verdict, each probe a kernel of the port held to its plain version.
                       global memory at unaligned starts j 14 through a
                       column mask (the JAX tool's 48-wide block)
 T9 and T10 are one kernel, row_block_affine, T11 and T12 one kernel,
-window_colsum, in two modes (csrc/probes.cu).
+window_colsum, in two modes (csrc/probes.cu). row_block_affine has no
+row blocks: the function depends on win only through the number of rows
+out, which the wrapper computes.
 
 On the TPU each probe asks whether Mosaic lowers a construct and what the
 out-of-bounds part of a block holds. On the card a block is an address
@@ -63,22 +65,33 @@ def row_block_affine_plain(x, out_rows: int, scale: float, shift: float):
     return y * scale + shift
 
 
-def _row_block_affine(x, out, out_rows: int, win: int, scale: float, shift: float, name: str):
-    """row_block_affine into `out` [B, out_rows, W, C] (rows contiguous,
-    images any multiple of 4 elements apart) -> out."""
+def check_out(out, x, out_rows: int, name: str) -> None:
+    """Raise ValueError unless `out` can take row_block_affine's result for x
+    [B, H, W, C]: fp32 [B, out_rows, W, C] on x's device, its rows
+    contiguous, its images a multiple of 4 elements and at least out_rows
+    rows apart, 16-byte aligned (a view of out_rows rows of a taller buffer
+    passes). Only an `out` the caller gave needs it."""
+    B, _, W, C = x.shape
+    row = W * C
+    if (out.device != x.device or out.dtype != torch.float32
+            or out.shape != (B, out_rows, W, C) or out.stride()[1:] != (row, C, 1)
+            or out.stride(0) % 4 or out.stride(0) < out_rows * row or out.data_ptr() % 16):
+        raise ValueError(f"{name} kernel needs out fp32 [{B}, {out_rows}, {W}, {C}] on "
+                         f"{x.device} with contiguous 16-byte aligned rows, images a multiple "
+                         f"of 4 and at least {out_rows * row} elements apart, got {out.dtype} "
+                         f"{tuple(out.shape)} strides {out.stride()} on {out.device}")
+
+
+def _row_block_affine(x, out, out_rows: int, scale: float, shift: float, name: str):
+    """row_block_affine of x into `out` [B, out_rows, W, C] (new, or as
+    check_out allows) -> out."""
     B, H, W, C = x.shape
     _build.require(x, "x", torch.float32)
     row = W * C
     if row % 4:
         raise ValueError(f"{name} kernel needs W C % 4 == 0, got {tuple(x.shape)}")
-    if (out.device != x.device or out.dtype != torch.float32
-            or tuple(out.shape) != (B, out_rows, W, C) or out.stride()[1:] != (row, C, 1)
-            or out.stride(0) % 4 or out.stride(0) < out_rows * row or out.data_ptr() % 16):
-        raise ValueError(f"{name} kernel needs out fp32 [{B}, {out_rows}, {W}, {C}] on "
-                         f"{x.device} with contiguous 16-byte aligned rows, got "
-                         f"{tuple(out.shape)} strides {out.stride()}")
     _build.check(_build.kernels().samroad_row_block_affine(
-        x.data_ptr(), out.data_ptr(), B, H, out_rows, row, out.stride(0), win, scale, shift,
+        x.data_ptr(), out.data_ptr(), B, H, out_rows, row, out.stride(0), scale, shift,
         _build.stream_of(x)), name)
     _build.launches[name] += 1
     return out
@@ -90,20 +103,23 @@ def nondiv_read_write(x, win: int = WIN):
     out_rows = -(-x.shape[1] // win) * win
     if _build.on_cpu(x):
         return row_block_affine_plain(x, out_rows, 1.0, 1.0)
-    out = torch.empty((x.shape[0], out_rows) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
-    return _row_block_affine(x, out, out_rows, win, 1.0, 1.0, "nondiv_read_write")
+    out = x.new_empty((x.shape[0], out_rows) + tuple(x.shape[2:]))
+    return _row_block_affine(x, out, out_rows, 1.0, 1.0, "nondiv_read_write")
 
 
 def nondiv_out_exact(x, win: int = WIN, out=None):
     """T10: 2 x, x [B, H, W, C] fp32, in blocks of win rows into an output of
     exactly H rows: a new tensor, or `out`, which may be a view of H rows of
-    a taller buffer (the kernel writes nothing past row H)."""
+    a taller buffer (the kernel writes nothing past row H). The blocks only
+    say which rows exist, so win does not change the result."""
     if _build.on_cpu(x):
         y = row_block_affine_plain(x, x.shape[1], 2.0, 0.0)
         return y if out is None else out.copy_(y)
     if out is None:
-        out = torch.empty_like(x)
-    return _row_block_affine(x, out, x.shape[1], win, 2.0, 0.0, "nondiv_out_exact")
+        out = torch.empty_like(x)  # the cheapest allocation on the host (x must be contiguous)
+    else:
+        check_out(out, x, x.shape[1], "nondiv_out_exact")
+    return _row_block_affine(x, out, x.shape[1], 2.0, 0.0, "nondiv_out_exact")
 
 
 def window_colsum_plain(x, win: int):

@@ -24,6 +24,7 @@ and launches the kernel 1 + reps times.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 
 import numpy as np
@@ -43,10 +44,20 @@ def batched_nt_plain(a, b):
     return torch.matmul(a.float(), b.float().transpose(-1, -2)).to(a.dtype)
 
 
+def batched_nt_grid(heads: int, N: int, looped: bool) -> int:
+    """The blocks batched_nt launches on the current card for [heads, N,
+    64]: one per (head, 64 x 64 output tile), or min(SMs, that) looped."""
+    grid = ctypes.c_int()
+    _build.check(_build.kernels().samroad_batched_nt_grid(heads, N, int(looped),
+                                                          ctypes.byref(grid)), "batched_nt")
+    return grid.value
+
+
 def batched_nt(a, b, looped: bool = False):
     """T13: a, b [heads, N, 64] bf16 -> a[h] . b[h]^T [heads, N, N] bf16, in
-    the looped launch shape (a block per output tile walks the heads) or the
-    batched one (a block per tile and head); the two are bit-equal."""
+    the looped launch shape (a persistent grid whose blocks walk the (head,
+    tile) items) or the batched one (a block per item); the two are
+    bit-equal."""
     if _build.on_cpu(a):
         return batched_nt_plain(a, b)
     heads, N, D = a.shape
@@ -55,7 +66,7 @@ def batched_nt(a, b, looped: bool = False):
     _build.require(b, "b", bf, a.shape)
     if D != DEPTH:
         raise ValueError(f"batched_nt kernel needs depth {DEPTH}, got {tuple(a.shape)}")
-    out = torch.empty((heads, N, N), dtype=bf, device=a.device)
+    out = a.new_empty((heads, N, N))
     _build.check(_build.kernels().samroad_batched_nt(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), heads, N, D, int(looped),
         _build.stream_of(a)), "batched_nt")

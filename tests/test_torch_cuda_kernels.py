@@ -678,13 +678,15 @@ def test_cuda_batched_dot_finds_row_maxima_off_the_diagonal(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,W,C,win", [(32, 32, 256, 14), (23, 13, 100, 5)])
+@pytest.mark.parametrize("H,W,C,win", [(32, 32, 256, 14), (23, 13, 100, 5), (3, 7, 64, 8)])
 def test_cuda_row_block_affine_probes_are_bit_equal_to_plain(cuda, H, W, C, win):
     """T9 (ceil(H / win) win rows out, the rows past H 1.0) and T10 (2 x into
     exactly H rows) on x [2, H, W, C] fp32 in blocks of win rows, the last
-    partial (and at 13 x 100 a partial column strip): bit-equal to their
-    plain versions; T10 through a view of H rows of a buffer whose rows
-    past H hold NaN leaves them NaN; one launch a call."""
+    partial (at 13 x 100 a partial column strip; at 23 and 3 rows an odd
+    number out, no multiple of the kernel's row pairs; at H 3 < win 8 one
+    block, mostly past H): bit-equal to their plain versions; T10 through a
+    view of H rows of a buffer whose rows past H hold NaN leaves them NaN;
+    one launch a call."""
     pnb = probe_nondiv_blocks
     x = torch.randn((2, H, W, C), generator=torch.Generator(device=cuda).manual_seed(27),
                     device=cuda)
@@ -724,11 +726,15 @@ def test_cuda_window_colsum_probes_match_plain_and_are_bit_equal(cuda, W, C, win
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads,N", [(12, 256), (3, 200)])
+@pytest.mark.parametrize("heads,N", [(12, 256), (3, 200), (12, 196), (2, 198), (1, 1),
+                                     (64, 256)])
 def test_cuda_batched_nt_shapes_are_bit_equal_and_match_plain(cuda, heads, N):
-    """T13 on a, b [heads, N, 64] bf16 (N 200: no multiple of 16 or 64):
-    the looped and batched launch shapes bit-equal, within 2e-2 (1 + |plain|)
-    of batched_nt_plain in fp32; one launch each."""
+    """T13 on a, b [heads, N, 64] bf16 (N 200: no multiple of 16 or 64; 196
+    and 198: 8- and 4-byte output stores; 1: a lone element, 2-byte stores;
+    64 heads: 1024 items, so the looped grid's blocks walk several): the
+    looped and batched launch shapes bit-equal, within 2e-2 (1 + |plain|)
+    of batched_nt_plain in fp32; one launch each; the looped grid min(SMs,
+    items) blocks, the batched one a block per item."""
     gen = torch.Generator(device=cuda).manual_seed(29)
     a, b = _rn(gen, cuda, heads, N, 64), _rn(gen, cuda, heads, N, 64)
     before = _build.launches["batched_nt"]
@@ -738,3 +744,7 @@ def test_cuda_batched_nt_shapes_are_bit_equal_and_match_plain(cuda, heads, N):
     assert _build.launches["batched_nt"] == before + 2
     assert torch.equal(looped, batched)
     assert _within_tol(looped, repro_aot_crash.batched_nt_plain(a.float(), b.float()))
+    items = heads * (-(-N // 64)) ** 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert repro_aot_crash.batched_nt_grid(heads, N, True) == min(sms, items)
+    assert repro_aot_crash.batched_nt_grid(heads, N, False) == items

@@ -9,10 +9,12 @@ kernels' bodies restated here at small sizes (the tools hard-code their
 shapes and jit without interpret, and nothing under tools/ is imported):
 T9 / T10 in blocks of 4 rows over H 10, so the last block is partial; T11
 over W 10 in windows of 4 (nJ 3), T12 from a 16-wide block over those 10
-columns; T13 on 3 heads of [16, 8], both bodies. T9 and T10 exact (a masked
-copy, one multiply and one add, rounded alike), T11-T13 within 1e-5 (the
-same sums in another order). The CUDA kernels are held to these plain
-versions in tests/test_torch_cuda_kernels.py.
+columns; T13 on 1-4 heads of [N, 8], N 1 to 20, both bodies. T9 and T10
+exact (a masked copy, one multiply and one add, rounded alike), T11-T13
+within 1e-5 (the same sums in another order). The CUDA kernels are held to
+these plain versions in tests/test_torch_cuda_kernels.py. T9 / T10's check
+of a caller's `out` (its dtype, shape, strides and alignment) is tested on
+CPU tensors.
 """
 
 import math
@@ -118,16 +120,23 @@ def test_window_colsum_matches_pallas_probe(name, block_cols, padded):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("looped", [True, False])
-def test_batched_nt_matches_pallas_repro_bodies(looped):
-    """T13: a[h] . b[h]^T on 3 heads of [16, 8], against looped_kernel (a
-    Python loop of 2-D dots) and batched_kernel (one batched dot_general),
-    tools/repro_aot_crash.py:35-45, in fp32."""
+# (heads, N) of the T13 cases; the first keeps its cases' ids "True" / "False"
+NT_SHAPES = [(3, 16), (1, 16), (1, 13), (4, 20), (2, 1)]
+
+
+@pytest.mark.parametrize("looped,heads,N", [
+    pytest.param(looped, h, n, id=f"{looped}" if i == 0 else f"{looped}-{h}x{n}")
+    for i, (h, n) in enumerate(NT_SHAPES) for looped in (True, False)])
+def test_batched_nt_matches_pallas_repro_bodies(looped, heads, N):
+    """T13: a[h] . b[h]^T on `heads` heads of [N, 8] (N 13 and 20 no
+    multiple of 16, N 1 a lone element; one head and several), against
+    looped_kernel (a Python loop of 2-D dots) and batched_kernel (one
+    batched dot_general), tools/repro_aot_crash.py:35-45, in fp32."""
     r = np.random.default_rng(63)
-    a, b = (r.normal(size=(3, 16, 8)).astype(np.float32) for _ in range(2))
+    a, b = (r.normal(size=(heads, N, 8)).astype(np.float32) for _ in range(2))
 
     def looped_kernel(a_ref, b_ref, o_ref):
-        for i in range(3):
+        for i in range(heads):
             o_ref[i] = jnp.dot(a_ref[i], b_ref[i].T, preferred_element_type=jnp.float32)
 
     def batched_kernel(a_ref, b_ref, o_ref):
@@ -137,10 +146,47 @@ def test_batched_nt_matches_pallas_repro_bodies(looped):
     spec = pl.BlockSpec(memory_space=pltpu.VMEM)
     want = pl.pallas_call(
         looped_kernel if looped else batched_kernel,
-        out_shape=jax.ShapeDtypeStruct((3, 16, 16), jnp.float32), in_specs=[spec, spec],
+        out_shape=jax.ShapeDtypeStruct((heads, N, N), jnp.float32), in_specs=[spec, spec],
         out_specs=spec, interpret=True)(jnp.asarray(a), jnp.asarray(b))
     np.testing.assert_allclose(rac.batched_nt(t(a), t(b), looped=looped).numpy(),
                                np.asarray(want), **TOL)
+
+
+def _out_buffer(offset: int = 0, image: int = H * W * C, rows: int = H, row_stride: int = W * C):
+    """[B, rows, W, C] fp32 over a flat CPU buffer: images `image` elements
+    apart, rows `row_stride` apart, from element `offset`."""
+    flat = torch.zeros(offset + B * max(image, rows * row_stride) + 64)
+    return flat.as_strided((B, rows, W, C), (image, row_stride, C, 1), offset)
+
+
+@pytest.mark.parametrize("case,out", [
+    ("exact", lambda: torch.empty(B, H, W, C)),
+    ("view of a taller buffer", lambda: torch.empty(B, H + pnb.GUARD_ROWS, W, C)[:, :H]),
+    ("images 4 elements further apart", lambda: _out_buffer(image=H * W * C + 4)),
+])
+def test_check_out_accepts(case, out):
+    """T9 / T10's `out` check passes what the kernel can write: fp32 rows
+    of W C contiguous elements, images a multiple of 4 elements and at
+    least H rows apart, 16-byte aligned."""
+    pnb.check_out(out(), torch.zeros(B, H, W, C), H, "nondiv_out_exact")
+
+
+@pytest.mark.parametrize("case,out", [
+    ("wrong dtype", lambda: torch.empty(B, H, W, C, dtype=torch.float64)),
+    ("wrong shape", lambda: torch.empty(B, H + 1, W, C)),
+    ("non-contiguous rows", lambda: _out_buffer(row_stride=W * C + 4, image=H * (W * C + 4))),
+    ("channels strided", lambda: torch.empty(B, H, W, 2 * C)[..., ::2]),
+    ("misaligned image stride", lambda: _out_buffer(image=H * W * C + 2)),
+    ("image stride shorter than out_rows rows", lambda: _out_buffer(image=H * W * C - 4)),
+    ("misaligned start", lambda: _out_buffer(offset=1)),
+])
+def test_check_out_refuses(case, out):
+    """T9 / T10's `out` check raises ValueError, on CPU tensors, for what
+    the kernel cannot write: the wrong dtype or shape, rows that are not
+    contiguous, an image stride that is no multiple of 4 or shorter than
+    out_rows rows (images would overlap), a start off 16 bytes."""
+    with pytest.raises(ValueError, match="needs out fp32"):
+        pnb.check_out(out(), torch.zeros(B, H, W, C), H, "nondiv_out_exact")
 
 
 def _counted(monkeypatch, module, names):

@@ -217,6 +217,14 @@ def test_wrappers_take_plain_version_on_cpu_and_refuse_other_devices():
     assert not _build.launches  # no kernel launched on CPU tensors
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_require_refuses_a_tensor_off_the_card(device):
+    """_build.require, which every wrapper's CUDA path runs, raises
+    ValueError for a tensor that is not on a card, whatever its dtype."""
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        _build.require(torch.zeros(4, device=device), "x", torch.float32)
+
+
 def test_failed_native_build_raises():
     with pytest.raises(RuntimeError, match="not found"):
         _native.build_and_load("nothing", "no-such-compiler-xyz", [], [])
