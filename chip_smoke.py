@@ -234,6 +234,10 @@ T913_META = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                                 "tools/probe_nondiv_blocks.py:170"),
     "batched_nt": ("sam_road_tpu_torch/csrc/probes.cu", "tools/repro_aot_crash.py:50"),
 }
+T58_LIBRARY = {  # T7, T8 -> the PyTorch expression timed as its library_ms
+    "batched_dot": "torch.bmm(q, q.transpose(1, 2)).amax(-1)",
+    "lane_slice": "torch.bmm(h0, h1.transpose(1, 2)).amax(-1), the heads sliced first",
+}
 T913_LIBRARY = {  # kernel -> the PyTorch expression timed as its library_ms
     "nondiv_read_write": "F.pad(x, rows) + 1", "nondiv_out_exact": "x * 2",
     "inkernel_pad_loop": "F.pad(x, cols).view(B, R, nJ, win, C).sum(3)",
@@ -537,7 +541,7 @@ def library_call(name: str, args, win: int = 14, heads: int = 12):
         x, w = args
         return lambda: torch.matmul(x, w.t())
     if name in ("batched_dot", "lane_slice"):  # T7, T8: torch.bmm, then the row max
-        x = args[0]
+        x = args[0]  # T8's two heads are sliced (views) here, outside the timed call
         a, b = (x, x) if name == "batched_dot" else (x[..., :64], x[..., 64:128])
         return lambda: torch.bmm(a, b.transpose(1, 2)).amax(-1)
     if name == "nondiv_read_write":  # T9: x [B, H, W, C] padded to whole blocks of rows, + 1
@@ -2841,7 +2845,9 @@ def check_t58_kernels(dev: str = "cuda", windows: int = 32 * 9, win: int = 14, d
     and `peaked_rows` (its key loop); T8 on x [8, 200, 768]. Library calls: SDPA with the bias as attn_mask (T5),
     torch.matmul (T6), torch.bmm and amax (T7, T8). Each row also carries
     `device_ms`, the kernel's own time from the profiler: T6-T8 are bound by
-    their launches."""
+    their launches; T7's and T8's rows also `library` (T58_LIBRARY) and
+    `host_us` / `library_host_us`, a call's time on the host's clock
+    (host_us)."""
     import torch
 
     from sam_road_tpu_torch.ops.fused_block import expand_rel_pos
@@ -2873,10 +2879,17 @@ def check_t58_kernels(dev: str = "cuda", windows: int = 32 * 9, win: int = 14, d
     cases["lane_slice"] = ("lane_slice", pm.lane_slice, lambda x: pm.rowmax_dot_plain(
         x[..., :pm.HEAD], x[..., pm.HEAD:2 * pm.HEAD]), (rn(batch // 4, tokens, width),), [], None)
     rows = check_cases(cases, heads, dev)
-    for label, (_, kern, _, args, _, _) in cases.items():
+    for label, (name, kern, _, args, _, _) in cases.items():
         row = with_device_time(rows[label], lambda: kern(*args), dev)
-        print(f"kernel {label}: {fmt_device(row)} against ms {row['ms']:.4f} (CUDA events)",
-              flush=True)
+        host = ""
+        if name in T58_LIBRARY:
+            with torch.no_grad():
+                row["host_us"], row["library_host_us"] = host_us(
+                    [lambda: kern(*args), library_call(name, args)], dev=dev)
+            row["library"] = T58_LIBRARY[name]
+            host = f" host_us {row['host_us']:.2f} (library {row['library_host_us']:.2f})"
+        print(f"kernel {label}: {fmt_device(row)} against ms {row['ms']:.4f} (CUDA events)"
+              f"{host}", flush=True)
     return rows
 
 

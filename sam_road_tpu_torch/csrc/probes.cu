@@ -17,14 +17,28 @@
 // operands through a row stride, a batch stride and a column offset, so the
 // head split is an address and T8 reads only 128 of the 768 columns.
 //
-// What bounds it on the H100: nothing but launch latency. T7 is 164 MFLOP
-// against 0.8 MB (0.25 us at the HBM peak), T8 41 MFLOP against the 0.41 MB
-// of its two heads and its output (0.12 us). One block per (image, 64-query tile), 4 warps of 16 query
-// rows; the 64-row key tiles stream through shared memory, the 16 x 16
-// wmma score tiles (bf16 in, fp32 accumulate) go through a per-warp staging
-// tile, and each query row keeps a running max over the real keys (the rows
-// are padded to 16: pad keys never enter the max, pad queries are never
-// written).
+// What bounds it on the H100: the launch and one trip to memory. T7 is 164
+// MFLOP against 0.8 MB (0.25 us at the HBM peak, 0.17 us at the bf16
+// tensor-core peak), T8 41 MFLOP against the 0.41 MB of its two heads and
+// its output (0.12 us). So the design puts every load in flight at once and
+// spreads the blocks over the SMs. A block takes one image's RM_Q = 32
+// query rows (224 blocks for T7, 56 for T8) and all of the image's keys:
+// the query tile and the key tiles of 64 rows arrive by cp.async, each in
+// its own commit group, and a ring of RM_STAGES = 4 key tiles holds every
+// key at N <= 256, so all of them are issued before the first wait (a
+// larger N refills the ring as each tile is consumed). Eight warps: two
+// 16-row query strips times four warps that split each key tile 16 keys
+// apiece. The scores are mma.sync m16n8k16 products (bf16 operands by
+// ldmatrix, fp32 accumulators); each thread takes the max of its
+// accumulator registers directly, key columns at or past N masked to -inf
+// first (a zero-filled key row scores 0, which would beat a row whose real
+// scores are all negative), then across the four lanes of its quad by
+// shuffles, then across the four key warps through 512 bytes of shared
+// memory. Query rows at or past N are zero-filled and never written.
+// 32-row query tiles rather than 16: T7 at 16 rows would be 416 blocks
+// that read each image's 25.6 KB of keys 13 times from L2 (10.6 MB) where
+// 32 rows read them 7 times (5.7 MB), and 224 blocks of 42 KB of shared
+// memory already fill the 132 SMs in one wave.
 //
 // row_block_affine (T9, T10), window_colsum (T11, T12) and batched_nt (T13)
 // follow rowmax_dot; each says there what it replaces and what bounds it.
@@ -33,22 +47,24 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
 
-using namespace nvcuda;
 using namespace samroad_mma;
 
 namespace {
 
-constexpr int D = 64;          // the contraction depth (a head)
-constexpr int BQ = 64, BKV = 64;
-constexpr int WARPS = BQ / 16;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDT = D + 8;     // bf16 tile row stride
+constexpr int D = 64;           // the contraction depth (a head)
 constexpr int MAX_DEVICES = 64;
+
+// ---- T7, T8: rowmax_dot ----
+constexpr int RM_Q = 32;        // query rows a block: two 16-row strips
+constexpr int RM_K = 64;        // key rows a stage of the ring
+constexpr int RM_STAGES = 4;    // the ring: every key in flight at once at N <= 256
+constexpr int RM_KWARPS = 4;    // warps that split a stage's keys, 16 each
+constexpr int RM_THREADS = RM_Q / 16 * RM_KWARPS * 32;  // 256
+constexpr int RM_LD = D + 8;    // 144-byte rows: ldmatrix conflict-free
 
 struct Operand {
   const bf16* p;               // element (0, 0, 0) of the tensor
@@ -56,59 +72,94 @@ struct Operand {
   int col;                     // the first of the D columns read
 };
 
-// rows [r0, r0 + 64) of image b's operand into dst; rows from N on are zero
-__device__ __forceinline__ void load_rows(bf16 (*dst)[LDT], const Operand& o, int b, int r0,
-                                          int N, int tid) {
-  for (int e = tid; e < 64 * (D / 8); e += THREADS) {
-    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < N)
-      u = *reinterpret_cast<const uint4*>(o.p + b * o.batch + (r0 + r) * o.row + o.col + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = u;
+struct RowmaxSmem {
+  bf16 q[RM_Q][RM_LD];
+  bf16 k[RM_STAGES][RM_K][RM_LD];
+  float part[RM_Q / 16][RM_KWARPS][16];  // each key warp's max of each query row
+};  // 41,984 bytes: static shared memory
+
+// rows [r0, r0 + ROWS) of image b's operand into dst by cp.async, 16 bytes a
+// copy; rows from N on are zero-filled and never read
+template <int ROWS>
+__device__ __forceinline__ void rowmax_load(bf16 (*dst)[RM_LD], const Operand& o, int64_t b,
+                                            int r0, int N) {
+  for (int e = threadIdx.x; e < ROWS * (D / 8); e += RM_THREADS) {
+    const int r = e / (D / 8), c = (e % (D / 8)) * 8, n = r0 + r;
+    cp_async<16>(&dst[r][c], o.p + b * o.batch + (int64_t)(n < N ? n : 0) * o.row + o.col + c,
+                 n < N);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-rowmax_dot_kernel(Operand qa, Operand kb, bf16* __restrict__ out, int N) {
-  __shared__ __align__(128) bf16 Qs[BQ][LDT];
-  __shared__ __align__(128) bf16 Ks[BKV][LDT];
-  __shared__ __align__(128) float stage[WARPS][16][16];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  // lane -> query row r of the warp's strip, columns [half * 8, half * 8 + 8) of a tile
-  const int r = lane & 15, half = lane >> 4;
-  float mx = -INFINITY;
+__global__ void __launch_bounds__(RM_THREADS)
+rowmax_dot_kernel(Operand qa, Operand kb, bf16* __restrict__ out, int N, int tiles) {
+  __shared__ __align__(128) RowmaxSmem s;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp / RM_KWARPS, kw = warp % RM_KWARPS;  // query strip, key quarter
+  const int g = lane >> 2, tq = lane & 3, lr = lane & 7, lm = lane >> 3;
+  const int64_t b = blockIdx.x / tiles;
+  const int q0 = blockIdx.x % tiles * RM_Q, stages = (N + RM_K - 1) / RM_K;
 
-  load_rows(Qs, qa, b, q0, N, tid);
-  for (int k0 = 0; k0 < N; k0 += BKV) {
-    __syncthreads();  // the previous key tile is consumed (and the q tile is in)
-    load_rows(Ks, kb, b, k0, N, tid);
-    __syncthreads();
+  // the query tile and the ring's key tiles, all issued before the first
+  // wait; one commit group a stage (the query tile in the first), empty
+  // past the last stage, so every wait below counts alike
+  rowmax_load<RM_Q>(s.q, qa, b, q0, N);
 #pragma unroll
-    for (int t = 0; t < BKV / 16; ++t) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int d = 0; d < D; d += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, &Qs[warp * 16][d], LDT);
-        wmma::load_matrix_sync(fb, &Ks[t * 16][d], LDT);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(&stage[warp][0][0], acc, 16, wmma::mem_row_major);
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int m = half * 8 + c;
-        if (k0 + t * 16 + m < N) mx = fmaxf(mx, stage[warp][r][m]);
-      }
-      __syncwarp();
-    }
+  for (int i = 0; i < RM_STAGES; ++i) {
+    if (i < stages) rowmax_load<RM_K>(s.k[i], kb, b, i * RM_K, N);
+    cp_async_commit();
   }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-  const int n = q0 + warp * 16 + r;
-  if (half == 0 && n < N) out[(int64_t)b * N + n] = __float2bfloat16_rn(mx);
+
+  uint32_t fa[D / 16][4];                   // the warp's 16 query rows, all of D
+  float mx[2] = {-INFINITY, -INFINITY};     // rows g and g + 8 of the strip
+  for (int i = 0; i < stages; ++i) {
+    cp_async_wait<RM_STAGES - 1>();
+    __syncthreads();  // stage i is in (at i = 0 the query tile too)
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldmatrix_x4(fa[kk], &s.q[strip * 16 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
+    }
+    const int buf = i % RM_STAGES;
+    float acc[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t fb[4];  // keys kw 16 + 0..7 (depth kk 16, + 8), then keys + 8..15 (the same)
+      ldmatrix_x4(fb, &s.k[buf][kw * 16 + (lm >> 1) * 8 + lr][kk * 16 + (lm & 1) * 8]);
+      mma_bf16(acc[0], fa[kk], fb[0], fb[1]);
+      mma_bf16(acc[1], fa[kk], fb[2], fb[3]);
+    }
+    // acc[j][c]: row g + 8 (c / 2), key k0 + 8 j + 2 tq + c % 2; past N -inf
+    const int k0 = i * RM_K + kw * 16;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float v = k0 + 8 * j + 2 * tq + (c & 1) < N ? acc[j][c] : -INFINITY;
+        mx[c >> 1] = fmaxf(mx[c >> 1], v);
+      }
+    if (i + RM_STAGES < stages) {  // the ring's next tile into the buffer just read
+      __syncthreads();
+      rowmax_load<RM_K>(s.k[buf], kb, b, (i + RM_STAGES) * RM_K, N);
+    }
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1) {  // the quad's four lanes hold the same two rows
+    mx[0] = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], m));
+    mx[1] = fmaxf(mx[1], __shfl_xor_sync(0xffffffffu, mx[1], m));
+  }
+  if (tq == 0) {
+    s.part[strip][kw][g] = mx[0];
+    s.part[strip][kw][g + 8] = mx[1];
+  }
+  __syncthreads();
+  if (threadIdx.x < RM_Q) {  // one thread a query row: the max over the key warps
+    const int r = threadIdx.x, n = q0 + r;
+    float m = s.part[r / 16][0][r % 16];
+#pragma unroll
+    for (int w = 1; w < RM_KWARPS; ++w) m = fmaxf(m, s.part[r / 16][w][r % 16]);
+    if (n < N) out[b * N + n] = __float2bfloat16_rn(m);
+  }
 }
 
 // ---- T9, T10: rows in blocks of `win`, the last block partial ----
@@ -177,48 +228,114 @@ row_block_affine_kernel(const float* __restrict__ x, float* __restrict__ y, int 
 // pl.ds slices) and probe_oversized_sublane_block (T12: a 48-column block
 // over the 32-column array, unaligned starts j win, the columns past W
 // masked). The Pallas block (1, 14, 32, 256) fp32 is 458 KB, twice what a
-// block's shared memory holds, so here a block takes one (image, row) and
-// SUM_COLS channels. STAGED (T11) copies that slice into shared memory
-// zero-padded to nJ win columns and loops over j there; masked (T12) reads
-// global memory through the column mask and never touches a column past W.
-// Both add the win terms of a sum in one order, pad terms as 0.0, so T12 is
-// bit-equal to T11.
+// block's shared memory holds, so here a block takes one (image, row) on
+// the grid's x (any B R up to 2^31 - 1) and SUM_VECS vectors of channels
+// on its y, and a thread one vector of channels of one window column j.
+// STAGED (T11) copies the block's slice into shared memory zero-padded to
+// nJ win columns by cp.async, columns at or past W zero-filled (the in-kernel
+// pad the Pallas probe asks about), waits once, then sums from there; masked
+// (T12) reads its terms from global memory through the column mask and
+// never touches a column at or past W. Both add the win terms of a sum in
+// one order, t = 0 .. win - 1 from 0.0 with __fadd_rn, pad terms as 0.0, so
+// T12 is bit-equal to T11.
 //
-// What bounds it: bytes, 1.0 MB at the tool's shapes (0.30 us); 112 blocks
-// of one short loop each are bound by the launch.
-constexpr int SUM_THREADS = 128;
-constexpr int SUM_COLS = 64;  // channels a block covers
+// What bounds it: bytes, 1.0 MB at the tool's shapes (0.30 us at the HBM
+// peak); with so little work a launch is over after one memory latency or
+// two, so every load is in flight at once. A vector is 4 channels (16-byte
+// accesses) where C % 4 == 0, else 1 (the scalar instance). STAGED issues
+// every copy of its strip before its one wait; masked holds SUM_TERMS terms
+// in registers and issues all of a chunk's loads (predicated, with no branch
+// between them) before its first add: at win <= 16 and nJ <= 32 (the tool's
+// 14 and 3) that is every load of the thread. The block has SUM_VECS
+// threads a window column and nJ of them rounded up to a warp, at most 32:
+// 224 blocks of 32 threads at the tool's [2, 14, 32, 256].
+constexpr int SUM_VECS = 8;           // vectors of channels a block covers
+constexpr int SUM_TERMS = 16;         // terms a thread holds in registers at once
+constexpr int SUM_MAX_THREADS = SUM_VECS * 32;
 constexpr int SUM_MAX_SHARED = 48 * 1024;
 
-template <bool STAGED>
-__global__ void __launch_bounds__(SUM_THREADS)
+template <int VEC> struct SumVec;  // VEC fp32 channels as one access
+template <> struct SumVec<4> {
+  typedef float4 T;
+  static __device__ __forceinline__ T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  static __device__ __forceinline__ T add(T a, T b) {
+    return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                       __fadd_rn(a.w, b.w));
+  }
+  // *p where valid, else zeros: a predicated load (nothing is read for an
+  // invalid term), so no branch keeps a thread's loads apart
+  static __device__ __forceinline__ T load_if(const float* p, bool valid) {
+    T v;
+    asm("{\n.reg .pred q;\nsetp.ne.b32 q, %5, 0;\n"
+        "mov.f32 %0, 0f00000000;\nmov.f32 %1, 0f00000000;\n"
+        "mov.f32 %2, 0f00000000;\nmov.f32 %3, 0f00000000;\n"
+        "@q ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n}\n"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+        : "l"(p), "r"((int)valid));
+    return v;
+  }
+};
+template <> struct SumVec<1> {
+  typedef float T;
+  static __device__ __forceinline__ T zero() { return 0.f; }
+  static __device__ __forceinline__ T add(T a, T b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ T load_if(const float* p, bool valid) {
+    T v;
+    asm("{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\nmov.f32 %0, 0f00000000;\n"
+        "@q ld.global.nc.f32 %0, [%1];\n}\n"
+        : "=f"(v)
+        : "l"(p), "r"((int)valid));
+    return v;
+  }
+};
+
+// (..., 1): one block an SM is occupancy enough, so ptxas keeps a chunk's
+// terms in registers (64 of them as float4s) and issues every load before
+// the first add; left to aim at more blocks, it interleaved the loads with
+// the adds to save registers, and each add then waited out a load
+template <bool STAGED, int VEC>
+__global__ void __launch_bounds__(SUM_MAX_THREADS, 1)
 window_colsum_kernel(const float* __restrict__ x, float* __restrict__ out, int W, int C, int win,
                      int nJ) {
-  extern __shared__ float strip[];  // STAGED: [nJ win][SUM_COLS], zero from column W on
-  const int c0 = blockIdx.x * SUM_COLS;
-  const float* xr = x + (int64_t)blockIdx.y * W * C + c0;  // row (b, r) of x
-  float* o = out + (int64_t)blockIdx.y * nJ * C + c0;
+  typedef SumVec<VEC> S;
+  typedef typename S::T V;
+  extern __shared__ __align__(16) float strip_[];  // STAGED: [nJ win][SUM_VECS] vectors
+  V* strip = reinterpret_cast<V*>(strip_);
+  const int c0 = blockIdx.y * SUM_VECS * VEC, v = threadIdx.x % SUM_VECS, c = c0 + v * VEC;
+  const float* xr = x + (int64_t)blockIdx.x * W * C;  // row (b, r) of x
+  float* o = out + (int64_t)blockIdx.x * nJ * C;
   if constexpr (STAGED) {
-    for (int e = threadIdx.x; e < nJ * win * SUM_COLS; e += SUM_THREADS) {
-      const int w = e / SUM_COLS, c = e % SUM_COLS;
-      strip[e] = (w < W && c0 + c < C) ? xr[(int64_t)w * C + c] : 0.f;
+    for (int e = threadIdx.x; e < nJ * win * SUM_VECS; e += blockDim.x) {
+      const int w = e / SUM_VECS, cc = c0 + e % SUM_VECS * VEC;
+      const bool in = w < W && cc < C;  // else zero-filled, nothing read
+      cp_async<VEC * 4>(&strip[e], in ? xr + (int64_t)w * C + cc : xr, in);
     }
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
   }
-  for (int e = threadIdx.x; e < nJ * SUM_COLS; e += SUM_THREADS) {
-    const int j = e / SUM_COLS, c = e % SUM_COLS;
-    if (c0 + c >= C) continue;
-    float s = 0.f;
-    for (int t = 0; t < win; ++t) {
-      const int w = j * win + t;
-      float v;
-      if constexpr (STAGED)
-        v = strip[w * SUM_COLS + c];
-      else
-        v = w < W ? xr[(int64_t)w * C + c] : 0.f;
-      s = __fadd_rn(s, v);
+  const bool live = c < C;  // C % VEC == 0: a vector lies wholly inside or past C
+  for (int j = threadIdx.x / SUM_VECS; j < nJ; j += blockDim.x / SUM_VECS) {
+    V s = S::zero();
+    for (int t0 = 0; t0 < win; t0 += SUM_TERMS) {
+      // every load of the chunk first, with no branch between them; terms
+      // past win are 0.0, and s + 0.0 is s (s starts at +0.0, so it is never
+      // -0.0), so the adds need no branch either
+      V term[SUM_TERMS];
+#pragma unroll
+      for (int i = 0; i < SUM_TERMS; ++i) {
+        const int t = t0 + i, w = j * win + t;
+        if constexpr (STAGED) {
+          const V u = strip[(t < win ? w : j * win) * SUM_VECS + v];
+          term[i] = t < win ? u : S::zero();
+        } else {
+          term[i] = S::load_if(xr + (int64_t)w * C + c, live && t < win && w < W);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < SUM_TERMS; ++i) s = S::add(s, term[i]);  // in order of t
     }
-    o[(int64_t)j * C + c] = s;
+    if (live) *reinterpret_cast<V*>(o + (int64_t)j * C + c) = s;
   }
 }
 
@@ -347,17 +464,19 @@ extern "C" {
 // out [B, N] bf16 = max over m < N of a[b, n, :] . b[b, m, :], the D = 64
 // columns from a_col / b_col on; a and b (which may be one tensor) bf16,
 // token rows row_stride elements apart and images batch_stride apart, every
-// stride and offset a multiple of 8 (16-byte loads).
+// stride and offset a multiple of 8 (16-byte loads). One block an (image,
+// 32-row query tile), all on the grid's x.
 int samroad_rowmax_dot(const void* a, const void* b, void* out, int B, int N, int depth,
                        int row_stride, int batch_stride, int a_col, int b_col, void* stream) {
   if (B <= 0 || N <= 0 || depth != D || row_stride % 8 || batch_stride % 8 || a_col % 8 ||
       b_col % 8 || a_col < 0 || b_col < 0 || a_col + D > row_stride || b_col + D > row_stride)
     return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (N + RM_Q - 1) / RM_Q, blocks = B * tiles;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const Operand qa{reinterpret_cast<const bf16*>(a), row_stride, batch_stride, a_col};
   const Operand kb{reinterpret_cast<const bf16*>(b), row_stride, batch_stride, b_col};
-  dim3 grid((N + BQ - 1) / BQ, B);
-  rowmax_dot_kernel<<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      qa, kb, reinterpret_cast<bf16*>(out), N);
+  rowmax_dot_kernel<<<(int)blocks, RM_THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      qa, kb, reinterpret_cast<bf16*>(out), N, (int)tiles);
   return (int)cudaGetLastError();
 }
 
@@ -380,23 +499,33 @@ int samroad_row_block_affine(const void* x, void* y, int B, int H, int out_rows,
 
 // out [B, R, nJ, C] fp32 = the sums of each row's W columns in windows of
 // win, nJ = ceil(W / win), x fp32 [B, R, W, C] contiguous; staged != 0
-// through a zero-padded shared-memory strip (T11), else masked global reads
-// (T12).
+// through a zero-padded shared-memory strip (T11; refused where the strip,
+// nJ win columns of SUM_VECS vectors, would pass 48 KB), else masked global
+// reads (T12). Any C: 16-byte accesses where C % 4 == 0, else 4-byte ones.
 int samroad_window_colsum(const void* x, void* out, int B, int R, int W, int C, int win,
                           int staged, void* stream) {
-  if (B <= 0 || R <= 0 || W <= 0 || C <= 0 || win <= 0 || (int64_t)B * R > 65535)
+  if (B <= 0 || R <= 0 || W <= 0 || C <= 0 || win <= 0 || (int64_t)B * R > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const int nJ = (W + win - 1) / win;
-  const size_t shared = staged ? (size_t)nJ * win * SUM_COLS * sizeof(float) : 0;
+  const int64_t nJ = ((int64_t)W + win - 1) / win;
+  const int vec = C % 4 == 0 ? 4 : 1;
+  const int64_t shared = staged ? nJ * win * SUM_VECS * vec * (int64_t)sizeof(float) : 0;
   if (shared > SUM_MAX_SHARED) return (int)cudaErrorInvalidValue;
-  dim3 grid((C + SUM_COLS - 1) / SUM_COLS, B * R);
+  // SUM_VECS threads a window column, nJ columns rounded up to a warp, at most 32
+  const int64_t lanes = (nJ + 3) / 4 * 4;
+  const int threads = SUM_VECS * (int)(lanes < 32 ? lanes : 32);
+  dim3 grid(B * R, (C + SUM_VECS * vec - 1) / (SUM_VECS * vec));
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float* xf = reinterpret_cast<const float*>(x);
   float* of = reinterpret_cast<float*>(out);
-  if (staged)
-    window_colsum_kernel<true><<<grid, SUM_THREADS, shared, s>>>(xf, of, W, C, win, nJ);
+  const int J = (int)nJ;
+  if (staged && vec == 4)
+    window_colsum_kernel<true, 4><<<grid, threads, shared, s>>>(xf, of, W, C, win, J);
+  else if (staged)
+    window_colsum_kernel<true, 1><<<grid, threads, shared, s>>>(xf, of, W, C, win, J);
+  else if (vec == 4)
+    window_colsum_kernel<false, 4><<<grid, threads, 0, s>>>(xf, of, W, C, win, J);
   else
-    window_colsum_kernel<false><<<grid, SUM_THREADS, 0, s>>>(xf, of, W, C, win, nJ);
+    window_colsum_kernel<false, 1><<<grid, threads, 0, s>>>(xf, of, W, C, win, J);
   return (int)cudaGetLastError();
 }
 

@@ -87,7 +87,7 @@ def _rowmax_dot(x, a_col: int, b_col: int, name: str):
     b_col -> [B, N] bf16."""
     B, N, W = x.shape
     _build.require(x, "x", torch.bfloat16)
-    out = torch.empty((B, N), dtype=torch.bfloat16, device=x.device)
+    out = x.new_empty((B, N))
     _build.check(_build.kernels().samroad_rowmax_dot(
         x.data_ptr(), x.data_ptr(), out.data_ptr(), B, N, HEAD, W, N * W, a_col, b_col,
         _build.stream_of(x)), name)

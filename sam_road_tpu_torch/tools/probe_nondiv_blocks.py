@@ -136,7 +136,7 @@ def window_colsum_plain(x, win: int):
 def _window_colsum(x, win: int, staged: bool, name: str):
     B, R, W, C = x.shape
     _build.require(x, "x", torch.float32)
-    out = torch.empty((B, R, -(-W // win), C), dtype=x.dtype, device=x.device)
+    out = x.new_empty((B, R, -(-W // win), C))
     _build.check(_build.kernels().samroad_window_colsum(
         x.data_ptr(), out.data_ptr(), B, R, W, C, win, int(staged), _build.stream_of(x)), name)
     _build.launches[name] += 1

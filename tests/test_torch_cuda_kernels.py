@@ -7,9 +7,11 @@ kernels they vary (K1 + pad, K4 on the cropped input, K2), and K9, K11, K12
 and K13 at the tools' shapes (groups bit-equal), K2, K3 and K10-K13 at
 vit_h's head_dim 80 (C 1280, 16 heads; at 256 px a 16x16 grid padded to
 28x28), the tools' kernels T1-T4 (T3 bit-equal to T2 at every G), T5 on a
-window and on the global grid, T6-T8 at the probes' shapes, and T9-T13 at
-the probes' shapes and at ragged ones (T9 / T10 bit-equal to plain, T12 to
-T11, T13's two launch shapes to each other), on an NVIDIA GPU.
+window and on the global grid, T6-T8 at the probes' shapes and T7 / T8 at
+ragged ones (one key to 1000, scores all negative), and T9-T13 at the
+probes' shapes and at ragged ones (T9 / T10 bit-equal to plain, T12 to
+T11, also at C 99 and at 70000 rows, T13's two launch shapes to each
+other), on an NVIDIA GPU.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
 where torch sees no GPU. This file imports neither jax nor the JAX package,
@@ -640,11 +642,17 @@ def test_cuda_merge_dense_matches_plain(cuda, NP):
     assert _within_tol(got, probe_mosaic.merge_dense_plain(x.float(), w.float()))
 
 
+# (B, N): one key, one ragged key tile, one whole, one and a bit, T7's own
+# shape, and 16 key tiles (the ring of 4 refilled)
+ROWMAX_SIZES = ((1, 1), (3, 17), (2, 64), (5, 65), (32, 200), (4, 1000))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,shape", [("batched_dot", (32, 200, 64)),
-                                        ("lane_slice", (8, 200, 768))])
+@pytest.mark.parametrize("name,shape", [("batched_dot", (B, N, 64)) for B, N in ROWMAX_SIZES]
+                         + [("lane_slice", (8, 200, 768)), ("lane_slice", (3, 17, 768))])
 def test_cuda_rowmax_dot_probes_match_plain(cuda, name, shape):
-    """T7 (q [32, 200, 64]) and T8 (x [8, 200, 768], heads 0 and 1) through
+    """T7 (q [B, N, 64] at every (B, N) of ROWMAX_SIZES) and T8 (x [B, N,
+    768], heads 0 and 1: column offsets 0 and 64, row stride 768) through
     rowmax_dot: within 2e-2 (1 + |plain|) of the plain version in fp32 (on
     the CPU the wrapper takes it); one launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -656,6 +664,30 @@ def test_cuda_rowmax_dot_probes_match_plain(cuda, name, shape):
     assert _build.launches[name] == before + 1
     assert got.shape == shape[:2]
     assert _within_tol(got, kern(x.float().cpu()).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(3, 17), (8, 200)])
+def test_cuda_rowmax_dot_never_takes_a_zero_filled_key_row(cuda, B, N):
+    """T8 on x [B, N, 768] whose head 0 is positive and head 1 negative, so
+    every score is below 0 and so is every row max: a key row past N, which
+    the kernel zero-fills, would score 0 and win the max unless it is
+    masked. Within 2e-2 (1 + |plain|) of the plain version, every output
+    negative; one launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    x = torch.randn((B, N, 768), generator=gen, device=cuda)
+    x[..., :64] = 0.5 + torch.rand((B, N, 64), generator=gen, device=cuda)
+    x[..., 64:128] = -0.5 - torch.rand((B, N, 64), generator=gen, device=cuda)
+    x = x.bfloat16()
+    ref = probe_mosaic.lane_slice(x.float().cpu()).to(cuda)
+    assert bool((ref < -1).all())
+    before = _build.launches["lane_slice"]
+    got = probe_mosaic.lane_slice(x)
+    torch.cuda.synchronize()
+    assert _build.launches["lane_slice"] == before + 1
+    assert bool((got < 0).all())
+    assert _within_tol(got, ref)
 
 
 @pytest.mark.cuda
@@ -705,14 +737,17 @@ def test_cuda_row_block_affine_probes_are_bit_equal_to_plain(cuda, H, W, C, win)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,C,win", [(32, 256, 14), (23, 100, 5)])
-def test_cuda_window_colsum_probes_match_plain_and_are_bit_equal(cuda, W, C, win):
-    """T11 (staged, zero-padded) on x [2, win, W, C] fp32 within 1e-4 of
+@pytest.mark.parametrize("B,R,W,C,win", [(2, 14, 32, 256, 14), (2, 5, 23, 100, 5),
+                                         (2, 5, 23, 99, 5), (2, 35000, 3, 4, 2)])
+def test_cuda_window_colsum_probes_match_plain_and_are_bit_equal(cuda, B, R, W, C, win):
+    """T11 (staged, zero-padded) on x [B, R, W, C] fp32 within 1e-4 of
     window_colsum_plain, as the JAX probe allows; T12 (masked global reads)
     bit-equal to T11; at 23 x 100 in windows of 5 the last window column
-    and the last channel slice are partial; one launch each."""
+    and the last channel slice are partial; C 99 (no multiple of 4) takes
+    the scalar instance; B R = 70000 rows lie past 65535 on the grid's x;
+    one launch each."""
     pnb = probe_nondiv_blocks
-    x = torch.randn((2, win, W, C), generator=torch.Generator(device=cuda).manual_seed(28),
+    x = torch.randn((B, R, W, C), generator=torch.Generator(device=cuda).manual_seed(28),
                     device=cuda)
     names = ("inkernel_pad_loop", "oversized_sublane_block")
     before = [_build.launches[n] for n in names]
@@ -720,7 +755,7 @@ def test_cuda_window_colsum_probes_match_plain_and_are_bit_equal(cuda, W, C, win
     masked = pnb.oversized_sublane_block(x, win)
     torch.cuda.synchronize()
     assert [_build.launches[n] - b for n, b in zip(names, before)] == [1, 1]
-    assert staged.shape == (2, win, -(-W // win), C)
+    assert staged.shape == (B, R, -(-W // win), C)
     assert (staged - pnb.window_colsum_plain(x, win)).abs().max().item() <= pnb.SUM_TOL
     assert torch.equal(masked, staged)
 
