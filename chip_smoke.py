@@ -1,13 +1,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
 checks and times each against its plain PyTorch version at the bench
 shapes, checks the fused encoder against the eager one, drives the engine
-over the bench workload (a 2048 px region, ViT-B at 512 px, batch 32, bf16,
-random weights from a seed), checks and times K5 (forward and gradients),
+over the bench workload through the bench tool (sam_road_tpu_torch/tools/
+bench.py: a 2048 px region, ViT-B at 512 px, batch 32, bf16, random
+weights from a seed), checks and times K5 (forward and gradients),
 takes training steps at ViT-B 512 px, batch 16, bf16, runs a region
 through the eager encoder (FUSED_ENCODER off), drives the training CLI
 over a generated Cityscale-format dataset with FUSED_ENCODER_TRAIN (K6:
 K1-K4 under autograd), then checks K7, K8 and K10 (the PAD_FREE / WIN_*
-modes) bit-equal to K1, K4 and K2 and drives the inference CLI over two
+modes) bit-equal to K1, K4 and K2 and the fused encoder in each mode
+against the eager one (tools/experiment_fused_encoder.py), drives the
+inference CLI over two
 generated 2048 px tiles from a SAM-format checkpoint in each mode and the
 calibration CLI, then checks K9 and K11-K13 (the tools' kernels; groups
 bit-equal) and runs the kernel A/B and windowed-block profiling tools, then
@@ -38,7 +41,10 @@ four times; masks bit-equal to one device's, K1-K4 launched on every
 shard), configs/toponet_vitb_1024.yaml token-sharded over 4 and over 1 (the
 SP encoder against the fp32 eager one), DDP training steps over gloo and
 NCCL against one process, and the inference CLI with SP_SHARDS /
-DP_SHARDS and the training CLI under torch.distributed.run.
+DP_SHARDS and the training CLI under torch.distributed.run. Phase 21, the
+last, runs the inference measurement tools at the bench geometry: the
+phase-1, extraction / phase-2 and phase-2 profilers, the paired engine
+A/B, the batch sweep and the encoder profiler, each printing its JSON line.
 Every kernel's time sits beside its bound (bytes or operations at the
 card's peak rates) and, where one PyTorch call computes the same function,
 that call's time.
@@ -54,6 +60,7 @@ from __future__ import annotations
 import gc
 import glob
 import json
+import math
 import os
 import pickle
 import shutil
@@ -65,14 +72,15 @@ import time
 
 import numpy as np
 
+from sam_road_tpu_torch.tools.bench import BENCH, REGION, calibrate
+
 TOL = 2e-2  # |kernel - plain_fp32| <= TOL * (1 + |plain_fp32|), bf16 kernels
 COS_MIN = 0.999
-BENCH = dict(
-    DATASET="cityscale", SAM_VERSION="vit_b", PATCH_SIZE=512,
-    INFER_BATCH_SIZE=32, INFER_PATCHES_PER_EDGE=16, SAMPLE_MARGIN=64,
-    COMPUTE_DTYPE="bfloat16", TOPO_SAMPLE_NUM=512, FUSED_ENCODER=True,
-)
-REGION = 2048
+# the bench workload (ViT-B 512 px, batch 32, bf16, FUSED_ENCODER, a 2048 px
+# region): sam_road_tpu_torch/tools/bench.py's, which phase 5 runs
+BENCH_PER_BATCH = {"ln_dense": 12, "window_attention_rows_grid": 8, "attention_relpos_rows": 4,
+                   "proj_ln_mlp_residual": 12}
+BENCH_RUNS = 3  # phase 5's timed runs
 SEED = 0  # random weights (torch.Generator) for phases 4, 5, 7 and 8
 TRAIN = dict(  # configs/toponet_vitb_512_cityscale.yaml's training geometry
     DATASET="cityscale", SAM_VERSION="vit_b", PATCH_SIZE=512, BATCH_SIZE=16,
@@ -274,6 +282,11 @@ DDP_LOSS_RTOL, DDP_GRAD_RTOL = 2e-3, 1e-2
 # bf16 encoders (plain-torch attention against K1-K4, features at cosine 0.9999) feed the
 # decoder, and a logit one bf16 step apart moves a sigmoid score by up to about 2 levels
 SP_CLI_MAX_LEVELS = 2
+# phase 21: the inference measurement tools at the bench geometry, few rounds
+PROFILE_ROUNDS = 3
+SWEEP_BATCHES = (16, 32, 64)
+SWEEP_RUNS = 1
+AB_B = {"FUSED_ENCODER": False}
 BLOCK_LOOP = dict(iters=10, reps=3)
 PROBE_REPS = 20
 GROUP_WINDOW_LOOP = dict(iters=10, rounds=4)
@@ -819,9 +832,39 @@ def check_encoder(seed: int, dev: str = "cuda"):
         raise SystemExit("fused encoder disagrees with the eager encoder")
 
 
+def bench_batches(detail: dict) -> int:
+    return -(-detail["patches"] // detail["batch"])
+
+
+def run_bench(dev: str = "cuda", runs: int = BENCH_RUNS):
+    """Phase 5: the bench tool (sam_road_tpu_torch/tools/bench.py, which
+    prints its JSON line) over its workload with seeded random weights: its
+    check run must launch BENCH_PER_BATCH of each kernel a batch, its graph
+    be non-empty, its masks region-sized and non-constant and the first
+    batch's float mask scores and features finite. Returns the check run's
+    launches."""
+    from sam_road_tpu_torch.tools import bench
+
+    d = bench.main(dev, runs=runs, seed=SEED)["detail"]
+    want = {k: n * bench_batches(d) for k, n in BENCH_PER_BATCH.items()}
+    if d["launches"] != want:
+        raise SystemExit(f"main path launches {d['launches']}, expected {want}")
+    if not d["nodes"] or not d["edges"]:
+        raise SystemExit("the bench produced an empty graph")
+    if d["mask_shape"] != [REGION] * 4 or any(
+            lo == hi for lo, hi in d["mask_levels"].values()):
+        raise SystemExit(f"the bench's masks are constant or misshapen: {d['mask_shape']} "
+                         f"{d['mask_levels']}")
+    if not d["scores_finite"]:
+        raise SystemExit("the bench's mask scores or features hold a NaN or inf")
+    print(f"bench: {d['nodes']} nodes, {d['edges']} edges, peak {d['peak_mem_gib']:.3f} GiB, "
+          f"least {min(d['all_runs_s']):.3f} s, median {d['median_s']:.3f} s", flush=True)
+    return d["launches"]
+
+
 def run_engine(seed: int, overrides: dict, region: int, per_batch: dict, dev: str = "cuda",
                model=None, repeats: int = 2):
-    """Phases 5, 8, 12, 17 and 18: a region through the engine (`model`, or
+    """Phases 8, 12, 17 and 18: a region through the engine (`model`, or
     seeded random weights); returns the launches of the timed run, which
     must be `per_batch` launches of each kernel per batch, and prints its
     peak memory. `repeats` more runs print their timings."""
@@ -836,17 +879,14 @@ def run_engine(seed: int, overrides: dict, region: int, per_batch: dict, dev: st
         model = init_random(SAMRoad.from_config(cfg), seed)
     img = np.random.default_rng(0).integers(0, 255, size=(region, region, 3), dtype=np.uint8)
     engine = TiledInferenceEngine(cfg, model, dev)
-    # Warm run with thresholds above 1 (no vertices): at the default
-    # thresholds random weights put millions of pixels above threshold, and
-    # the shared NMS treats every uint8 score > 1.0 as immune, so extraction
-    # alone took ~171 s on the card's host. The masks do not depend on the
-    # thresholds, so the calibration below is bench.py's.
-    engine.config.ITSC_THRESHOLD = engine.config.ROAD_THRESHOLD = 1.0
+    # The bench tool's calibration: a warm run at thresholds 1.0 (no
+    # vertices: at the default thresholds random weights put millions of
+    # pixels above threshold, and the shared NMS treats every uint8 score >
+    # 1.0 as immune, so extraction alone took ~171 s on the card's host),
+    # then the masks' quantiles.
     t = time.time()
-    _, _, kp, road = engine.infer_one_img(img)  # warm run
+    calibrate(engine, img)
     print(f"engine warm run {time.time() - t:.3f} s {engine.last_timings}", flush=True)
-    engine.config.ITSC_THRESHOLD = float(np.quantile(kp / 255.0, 0.99))
-    engine.config.ROAD_THRESHOLD = float(np.quantile(road / 255.0, 0.92))
     import torch
 
     if dev == "cuda":
@@ -1410,57 +1450,24 @@ def check_grid_kernels(B: int, dev: str = "cuda"):
     return results
 
 
-ENCODER_MODES = {"default": {}, "PAD_FREE": {"PAD_FREE": True},
-                 "PAD_FREE+WIN_GROUP_BATCH=4": {"PAD_FREE": True, "WIN_GROUP_BATCH": 4},
-                 "WIN_ROLLED_ROWS": {"WIN_ROLLED_ROWS": True}}
+def check_encoder_modes(dev: str = "cuda", rounds: int = 3):
+    """Phase 10b: sam_road_tpu_torch/tools/experiment_fused_encoder.py at
+    the bench geometry (32 patches, bf16), over its variants and PAD_FREE
+    with WIN_GROUP_BATCH 4: the eager encoder and the fused one in each
+    mode, timed in turns (its JSON line), every mode bit-equal to the
+    default switches (v3)."""
+    from sam_road_tpu_torch.tools import experiment_fused_encoder as tool
 
-
-def set_encoder_switches(switches: dict) -> None:
-    """models/fast_encoder.py's module switches: the defaults, then these."""
-    from sam_road_tpu_torch.models import fast_encoder as fe
-
-    fe.PAD_FREE, fe.WIN_GROUP_BATCH, fe.WIN_ROLLED_ROWS = False, 1, False
-    for key, value in switches.items():
-        setattr(fe, key, value)
-
-
-def check_encoder_modes(seed: int, dev: str = "cuda", rounds: int = 4):
-    """Phase 10b: the fused encoder at the bench geometry (32 patches, bf16)
-    in each ENCODER_MODES entry, bit-equal to the default; the ms of a
-    forward in each mode, as `rounds` medians of 5 taken in turns (every
-    other round in reverse order), and their median."""
-    import torch
-
-    from sam_road_tpu_torch.config import load_config
-    from sam_road_tpu_torch.models.fast_encoder import encoder_forward_fused
-    from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
-
-    model = init_random(SAMRoad.from_config(load_config(overrides=BENCH)), seed).to(dev).eval()
-    enc = model.image_encoder
-    gen = torch.Generator(device=dev).manual_seed(11)
-    p = BENCH["PATCH_SIZE"]
-    x = model.normalize(torch.randint(0, 255, (BENCH["INFER_BATCH_SIZE"], p, p, 3),
-                                      generator=gen, device=dev))
-    outs, times = {}, {name: [] for name in ENCODER_MODES}
-    try:
-        for name, switches in ENCODER_MODES.items():
-            set_encoder_switches(switches)
-            outs[name] = encoder_forward_fused(enc, x)
-        for r in range(rounds):
-            for name in list(ENCODER_MODES)[::(-1) ** r]:
-                set_encoder_switches(ENCODER_MODES[name])
-                times[name].append(cuda_ms(lambda: encoder_forward_fused(enc, x), reps=5,
-                                           warmup=1))
-    finally:
-        set_encoder_switches({})
-    same = {name: torch.equal(out, outs["default"]) for name, out in outs.items()}
-    print("fused encoder forward, 32 patches, bf16, ms (median of the rounds; each round): "
-          + " | ".join(f"{name} bit-equal {same[name]} {statistics.median(t):.3f} ("
-                       + ", ".join(f"{v:.3f}" for v in t) + ")" for name, t in times.items()),
-          flush=True)
+    variants = {**tool.VARIANTS, "v3padfree_g4": {"PAD_FREE": True, "WIN_GROUP_BATCH": 4}}
+    res = tool.main(variants, dev, rounds=rounds, seed=SEED)
+    same = {lb: res[lb + "_bit_equal_to_v3"] for lb in variants}
+    print("fused encoder forward, 32 patches, bf16, least ms of the rounds: "
+          + " | ".join(f"{lb} {res[lb + '_ms']:.3f}"
+                       + (f" bit-equal {same[lb]}" if lb in same else "")
+                       for lb in ("eager", *variants)), flush=True)
     if not all(same.values()):
         raise SystemExit(f"an encoder mode is not bit-equal to the default: {same}")
-    return times
+    return res
 
 
 def write_sam_checkpoint(path: str, seed: int, sam_decoder: bool = False,
@@ -1516,6 +1523,7 @@ def run_infer_cli(seed: int, work: str, dev: str = "cuda"):
     from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
     from sam_road_tpu_torch.models.convert import load_weights
     from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.tools.experiment_fused_encoder import encoder_switches
 
     t = time.time()
     data = os.path.join(work, "infer_data")
@@ -1535,14 +1543,11 @@ def run_infer_cli(seed: int, work: str, dev: str = "cuda"):
     print(f"wrote {INFER_TILES} tiles and a SAM-format checkpoint in {time.time() - t:.1f} s",
           flush=True)
 
-    # thresholds by quantile of a first region's masks (see run_engine)
+    # thresholds by quantile of a first region's masks (the bench tool's calibrate)
     model, mismatched = load_weights(pth, cfg)
     engine = TiledInferenceEngine(cfg, model, dev)
-    engine.config.ITSC_THRESHOLD = engine.config.ROAD_THRESHOLD = 1.0
-    tile0 = read_rgb_img(os.path.join(sat, f"region_{test_ids[0]}_sat.png"))
-    _, _, kp, road = engine.infer_one_img(tile0)
-    values["ITSC_THRESHOLD"] = float(np.quantile(kp / 255.0, 0.99))
-    values["ROAD_THRESHOLD"] = float(np.quantile(road / 255.0, 0.92))
+    values.update(calibrate(engine, read_rgb_img(
+        os.path.join(sat, f"region_{test_ids[0]}_sat.png"))))
     cfg_path = os.path.join(work, "infer.yaml")
     write_flat_yaml(cfg_path, values)
     print(f"calibrated ITSC_THRESHOLD {values['ITSC_THRESHOLD']} ROAD_THRESHOLD "
@@ -1559,17 +1564,16 @@ def run_infer_cli(seed: int, work: str, dev: str = "cuda"):
     os.chdir(work)  # the CLI writes ./save/<output_dir>
     try:
         for name, (switches, per_batch) in INFER_MODES.items():
-            set_encoder_switches(switches)
             _build.reset_launches()
             t = time.time()
-            out = infer.main(["--config", cfg_path, "--checkpoint", pth, "--data_root", data,
-                              "--output_dir", name, "--max_tiles", str(INFER_TILES),
-                              "--device", dev])
-            if dev == "cuda":
-                torch.cuda.synchronize()
+            with encoder_switches(switches):
+                out = infer.main(["--config", cfg_path, "--checkpoint", pth, "--data_root",
+                                  data, "--output_dir", name, "--max_tiles", str(INFER_TILES),
+                                  "--device", dev])
+                if dev == "cuda":
+                    torch.cuda.synchronize()
             wall = time.time() - t
             launches = dict(_build.launches)
-            set_encoder_switches({})
             files = {}
             for tile in test_ids:
                 for rel in (f"mask/{tile}_road.png", f"mask/{tile}_itsc.png", f"graph/{tile}.p"):
@@ -1598,7 +1602,6 @@ def run_infer_cli(seed: int, work: str, dev: str = "cuda"):
             runs[name] = dict(launches=launches, seconds_per_region=loop_s / INFER_TILES)
     finally:
         os.chdir(cwd)
-        set_encoder_switches({})
     print(f"cli.infer: masks and graph pickles byte-equal across {list(runs)}", flush=True)
     return runs
 
@@ -1940,11 +1943,8 @@ def run_lora_cli(seed: int, work: str, dev: str = "cuda", extra: dict | None = N
     if set(mismatched) != want:
         raise SystemExit("load_weights left unexpected parameters unloaded")
     engine = TiledInferenceEngine(cfg, model, dev)
-    engine.config.ITSC_THRESHOLD = engine.config.ROAD_THRESHOLD = 1.0
-    _, _, kp, road = engine.infer_one_img(read_rgb_img(os.path.join(
-        sat, f"region_{test_ids[0]}_sat.png")))
-    values["ITSC_THRESHOLD"] = float(np.quantile(kp / 255.0, 0.99))
-    values["ROAD_THRESHOLD"] = float(np.quantile(road / 255.0, 0.92))
+    values.update(calibrate(engine, read_rgb_img(os.path.join(
+        sat, f"region_{test_ids[0]}_sat.png"))))
     cfg_path = os.path.join(work, "lora_infer.yaml")
     write_flat_yaml(cfg_path, values)
     del model, engine
@@ -2315,10 +2315,7 @@ def run_spacenet_infer(root: str, work: str, trained: dict, dev: str = "cuda"):
         test_ids = json.load(f)["test"]
     model, _ = load_weights(trained["ckpt"], cfg)
     engine = TiledInferenceEngine(cfg, model, dev)
-    engine.config.ITSC_THRESHOLD = engine.config.ROAD_THRESHOLD = 1.0
-    _, _, kp, road = engine.infer_one_img(read_rgb_img(os.path.join(sat, f"{test_ids[0]}__rgb.png")))
-    values["ITSC_THRESHOLD"] = engine.config.ITSC_THRESHOLD = float(np.quantile(kp / 255.0, 0.99))
-    values["ROAD_THRESHOLD"] = engine.config.ROAD_THRESHOLD = float(np.quantile(road / 255.0, 0.92))
+    values.update(calibrate(engine, read_rgb_img(os.path.join(sat, f"{test_ids[0]}__rgb.png"))))
     # TOPO_THRESHOLD: the median of the same tile's pair scores, less half
     # a step of their int16 fixed point, so a pair scoring it on every
     # observation is kept
@@ -3153,6 +3150,73 @@ def run_t913_tools(dev: str = "cuda", nondiv: dict | None = None, repro: dict | 
     return launches
 
 
+def check_times(tool: str, result: dict) -> None:
+    """Every time in a tool's result (a number, or a list of them, under a
+    key ending in _s, _ms or _rounds) positive and finite."""
+    bad = []
+
+    def walk(key, v):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                walk(k, x)
+        elif isinstance(v, list):
+            for x in v:
+                walk(key, x)
+        elif key.endswith(("_s", "_ms", "_rounds")) and not (math.isfinite(v) and v > 0):
+            bad.append((key, v))
+
+    walk("", result)
+    if bad:
+        raise SystemExit(f"{tool}: times not positive and finite: {bad[:5]}")
+
+
+def run_profilers(dev: str = "cuda", engine: dict | None = None, encoder: dict | None = None,
+                  batches=SWEEP_BATCHES, rounds: int = PROFILE_ROUNDS):
+    """Phase 21: the inference measurement tools of sam_road_tpu_torch/tools/
+    at the bench geometry, each printing its JSON line: profile_phase1
+    (fused), profile_extract_p2, profile_phase2 (S 128), abtest_engine
+    (B = AB_B), experiment_infer_batch (`batches`, the fused encoder on and
+    off) and profile_encoder, with `rounds` rounds (repetitions, reps) each.
+    Every time positive and finite; the sweep's check runs launch K1-K4 (or
+    K5 with the fused encoder off) exactly as a region needs; the A/B's
+    graphs non-empty. `engine` (overrides, region) and `encoder` (batch,
+    img_size, sam_version) shrink the tools for a CPU rehearsal."""
+    from sam_road_tpu_torch.tools import (abtest_engine, experiment_infer_batch,
+                                          profile_encoder, profile_extract_p2, profile_phase1,
+                                          profile_phase2)
+
+    engine, encoder = engine or {}, encoder or {}
+    out = {}
+    for name, fn in (
+            ("profile_phase1", lambda: profile_phase1.main(dev, rounds=rounds, **engine)),
+            ("profile_extract_p2", lambda: profile_extract_p2.main(dev, reps=rounds, **engine)),
+            ("profile_phase2", lambda: profile_phase2.main(
+                128, dev, rounds=rounds, overrides=engine.get("overrides"))),
+            ("abtest_engine", lambda: abtest_engine.main(
+                AB_B, rounds, {}, dev, base=engine.get("overrides"),
+                region=engine.get("region"))),
+            ("experiment_infer_batch", lambda: experiment_infer_batch.main(
+                batches, dev, runs=SWEEP_RUNS, **engine)),
+            ("profile_encoder", lambda: profile_encoder.main(dev, rounds=rounds, **encoder))):
+        t = time.time()
+        out[name] = fn()
+        check_times(name, out[name])
+        print(f"{name} took {time.time() - t:.1f} s", flush=True)
+    for key, row in out["experiment_infer_batch"].items():
+        if key == "device":
+            continue
+        b = int(key[1:].split("_")[0])
+        patches = out["profile_phase1"]["patches"]
+        per_batch = BENCH_PER_BATCH if key.endswith("_fused") else {"fused_attention": 12}
+        want = {k: n * -(-patches // b) for k, n in per_batch.items()}
+        if dev == "cuda" and row["launches"] != want:
+            raise SystemExit(f"experiment_infer_batch {key}: launches {row['launches']}, "
+                             f"expected {want}")
+    if not all(out["abtest_engine"]["a_graph"] + out["abtest_engine"]["b_graph"]):
+        raise SystemExit(f"abtest_engine: an empty graph {out['abtest_engine']}")
+    return out
+
+
 def mesh_devices(n: int, dev: str = "cuda") -> list:
     """n distinct cards where that many are visible, else `dev` n times."""
     import torch
@@ -3181,17 +3245,14 @@ def peaks_gib(devices) -> dict:
 
 
 def calibrated_single(cfg, model, img, dev: str):
-    """The single-device engine on `img` after run_engine's calibration (a
+    """The single-device engine on `img` after the bench tool's calibration (a
     warm run at thresholds 1.0, then the masks' 0.99 / 0.92 quantiles set
     on `cfg`, which the mesh engines share); returns the engine and its
     timed result."""
     from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
 
     engine = TiledInferenceEngine(cfg, model, dev)
-    cfg.ITSC_THRESHOLD = cfg.ROAD_THRESHOLD = 1.0
-    _, _, kp, road = engine.infer_one_img(img)
-    cfg.ITSC_THRESHOLD = float(np.quantile(kp / 255.0, 0.99))
-    cfg.ROAD_THRESHOLD = float(np.quantile(road / 255.0, 0.92))
+    calibrate(engine, img)
     return engine, engine.infer_one_img(img)
 
 
@@ -3608,10 +3669,8 @@ def main():
     phase("4 fused encoder vs eager encoder")
     check_encoder(SEED)
 
-    phase("5 engine on the bench workload")
-    launches = run_engine(SEED, BENCH, REGION, {
-        "ln_dense": 12, "window_attention_rows_grid": 8, "attention_relpos_rows": 4,
-        "proj_ln_mlp_residual": 12})
+    phase("5 engine on the bench workload: the bench tool")
+    launches = run_bench()
 
     phase("6 K5 fused_attention vs plain, forward and gradients")
     flash = check_flash_attention()
@@ -3634,7 +3693,7 @@ def main():
 
         phase("10 PAD_FREE / WIN_* (K7, K8, K10), the inference and calibration CLIs")
         grid = check_grid_kernels(32)
-        check_encoder_modes(SEED)
+        check_encoder_modes()
         infer_runs = run_infer_cli(SEED, work)
         run_test_cli(work)
 
@@ -3715,6 +3774,14 @@ def main():
     t_rows.update(check_t913_kernels())
     t_launches.update(run_t913_tools())
     print(f"phase 15 took {time.time() - t:.1f} s", flush=True)
+
+    phase("21 the inference measurement tools: phase-1, extraction / phase-2 and phase-2 "
+          "profilers, the engine A/B, the batch sweep, the encoder profiler")
+    t = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_profilers()
+    print(f"phase 21 took {time.time() - t:.1f} s", flush=True)
 
     kernels = []
     def vith_fields(name):  # phase 12's head_dim 80 reading and vit_h region launches,

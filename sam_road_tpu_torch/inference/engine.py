@@ -179,16 +179,20 @@ class TiledInferenceEngine:
 
     # ---------- phase 1 ----------
 
-    def _phase1_batch(self, model, img_dev, xy):
-        """Crops at the (x0, y0) origins `xy`, masks as int32 fixed point
-        and the feature maps, on img_dev's device."""
+    def _crop(self, img_dev, xy):
+        """The patches at the (x0, y0) origins `xy`, cropped on img_dev's
+        device and converted to float: [b, p, p, 3]."""
         p = self.patch_size
         ar = torch.arange(p, device=img_dev.device)
         xy_t = torch.as_tensor(np.asarray(xy, np.int64).reshape(-1, 2), device=img_dev.device)
         rows = (xy_t[:, 1, None] + ar)[:, :, None]
         cols = (xy_t[:, 0, None] + ar)[:, None, :]
-        rgb = img_dev[rows, cols].float()  # [b, p, p, 3] crops on device
-        masks, feats = model.infer_masks_and_features(rgb, self.encoder)
+        return img_dev[rows, cols].float()
+
+    def _phase1_batch(self, model, img_dev, xy):
+        """Crops at the (x0, y0) origins `xy`, masks as int32 fixed point
+        and the feature maps, on img_dev's device."""
+        masks, feats = model.infer_masks_and_features(self._crop(img_dev, xy), self.encoder)
         return torch.round(masks.float() * MASK_QUANT).to(torch.int32), feats
 
     @torch.no_grad()
@@ -287,11 +291,24 @@ class TiledInferenceEngine:
                                  "phase2": 0.0, "total": time.time() - t0}
             return graph_points, np.zeros((0, 2), np.int64), kp_mask, road_mask
 
+        pending = self._dispatch_phase2(p1["batches"], graph_points)
+        scored = self._collect_scores(pending)
+        t3 = time.time()
+        pred_edges = self._aggregate_edges(scored, graph_points.shape[0])
+        self.last_timings = {"phase1": t1 - t0, "extract": t2 - t1,
+                             "phase2": t3 - t2, "total": time.time() - t0}
+        return graph_points[:, ::-1], pred_edges, kp_mask, road_mask
+
+    def _dispatch_phase2(self, batches, graph_points):
+        """Build each phase-1 batch's pairs on the host and dispatch its
+        scoring, one batch after another; returns [(int16 scores on the
+        device, per-patch pairs)] for the batches with points, unfetched."""
+        cfg = self.config
         max_nbr = int(cfg.MAX_NEIGHBOR_QUERIES)
         radius = float(cfg.NEIGHBOR_RADIUS)
         dev = self.device
         pending = []
-        for feats, info in p1["batches"]:
+        for feats, info in batches:
             # None: a slot of a DP round past its shard's patches, no points
             boxes = np.array([(0.0, 0.0, -1.0, -1.0) if e is None else (*e[1], *e[2])
                               for e in info], np.float64)
@@ -316,42 +333,47 @@ class TiledInferenceEngine:
             q = self._scores_q(feats, torch.from_numpy(bpoints).to(dev),
                                torch.from_numpy(bpairs).to(dev),
                                torch.from_numpy(bvalid).to(dev))
-            pending.append((q, per_patch))  # dispatched; fetched below
+            pending.append((q, per_patch))
+        return pending
 
-        all_src, all_tgt, all_score = [], [], []
+    @staticmethod
+    def _collect_scores(pending):
+        """Fetch each pending batch's int16 scores, in order, and keep the
+        valid pairs': (source vertex, target vertex, score) arrays, one
+        triple per patch with a valid pair."""
+        scored = []
         for q_dev, per_patch in pending:
             q = q_dev[..., 0].cpu().numpy().astype(np.int64)
             for i, (pidx, pts, pairs, valid) in enumerate(per_patch):
                 n = pts.shape[0]
                 if n == 0 or not valid.any():
                     continue
-                all_src.append(pidx[pairs[..., 0][valid]])
-                all_tgt.append(pidx[pairs[..., 1][valid]])
-                all_score.append(q[i, :n][valid])
+                scored.append((pidx[pairs[..., 0][valid]], pidx[pairs[..., 1][valid]],
+                               q[i, :n][valid]))
+        return scored
 
-        t3 = time.time()
-        if not all_src:
-            pred_edges = np.zeros((0, 2), dtype=np.int64)
-        else:
-            n_pts = np.int64(graph_points.shape[0])
-            keys = np.concatenate(all_src) * n_pts + np.concatenate(all_tgt)
-            sc = np.concatenate(all_score)
-            uniq, inv = np.unique(keys, return_inverse=True)
-            sum_q = np.zeros(uniq.shape[0], np.int64)
-            nanc = np.zeros(uniq.shape[0], np.int64)
-            counts = np.zeros(uniq.shape[0], np.int64)
-            np.add.at(sum_q, inv, sc)
-            np.add.at(nanc, inv, (sc == -(2 ** 15)).astype(np.int64))
-            np.add.at(counts, inv, 1)
-            # exact int64 sums; a NaN score counts as the reference's -100
-            sums = ((sum_q + 32768 * nanc).astype(np.float64) / 32767.0
-                    - 100.0 * nanc.astype(np.float64))
-            avg = sums / counts.astype(np.float64)
-            kept = uniq[avg > cfg.TOPO_THRESHOLD]
-            pred_edges = np.stack([kept // n_pts, kept % n_pts], axis=1)
-        self.last_timings = {"phase1": t1 - t0, "extract": t2 - t1,
-                             "phase2": t3 - t2, "total": time.time() - t0}
-        return graph_points[:, ::-1], pred_edges, kp_mask, road_mask
+    def _aggregate_edges(self, scored, n_points: int):
+        """Average each (source, target) pair's scores in exact int64 and
+        keep the edges above TOPO_THRESHOLD: [E, 2] vertex indices."""
+        if not scored:
+            return np.zeros((0, 2), dtype=np.int64)
+        all_src, all_tgt, all_score = zip(*scored)
+        n_pts = np.int64(n_points)
+        keys = np.concatenate(all_src) * n_pts + np.concatenate(all_tgt)
+        sc = np.concatenate(all_score)
+        uniq, inv = np.unique(keys, return_inverse=True)
+        sum_q = np.zeros(uniq.shape[0], np.int64)
+        nanc = np.zeros(uniq.shape[0], np.int64)
+        counts = np.zeros(uniq.shape[0], np.int64)
+        np.add.at(sum_q, inv, sc)
+        np.add.at(nanc, inv, (sc == -(2 ** 15)).astype(np.int64))
+        np.add.at(counts, inv, 1)
+        # exact int64 sums; a NaN score counts as the reference's -100
+        sums = ((sum_q + 32768 * nanc).astype(np.float64) / 32767.0
+                - 100.0 * nanc.astype(np.float64))
+        avg = sums / counts.astype(np.float64)
+        kept = uniq[avg > self.config.TOPO_THRESHOLD]
+        return np.stack([kept // n_pts, kept % n_pts], axis=1)
 
     # ---------- entry points ----------
 

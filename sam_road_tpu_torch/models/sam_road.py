@@ -91,20 +91,24 @@ class SAMRoad(nn.Module):
         forward (training/harness.py::_fused_forward passes the
         differentiable fused one). Returns fp32 mask_logits, mask_scores
         [B, H, W, 2] and topo_logits, topo_scores [B, S, K, 1]."""
-        x = self.normalize(rgb)
-        emb = self.image_encoder(x) if encoder is None else encoder(self.image_encoder, x)
+        emb = self.encode(rgb, encoder)
         mask_logits = self.mask_logits(emb)
         feats = bilinear_sample_points(emb, graph_points, self.patch_size)
         topo_logits, topo_scores = self.topo_net(graph_points, feats, pairs, valid,
                                                  deterministic, generator)
         return mask_logits, torch.sigmoid(mask_logits), topo_logits.float(), topo_scores
 
+    def encode(self, rgb, encoder=None):
+        """uint8-range [B, H, W, 3] -> embeddings [B, h, w, 256] in
+        self.dtype; `encoder(module, x)` replaces the eager encoder forward."""
+        x = self.normalize(rgb)
+        return self.image_encoder(x) if encoder is None else encoder(self.image_encoder, x)
+
     def infer_masks_and_features(self, rgb, encoder=None):
         """Phase 1: (mask scores [B, H, W, 2] fp32, embeddings [B, h, w, 256]).
         `encoder(module, x)` replaces the eager encoder forward (the engine
         passes models.fast_encoder.encoder_forward_fused)."""
-        x = self.normalize(rgb)
-        emb = self.image_encoder(x) if encoder is None else encoder(self.image_encoder, x)
+        emb = self.encode(rgb, encoder)
         return self.decode_masks(emb), emb
 
     def infer_toponet(self, embeddings, graph_points, pairs, valid):

@@ -136,20 +136,23 @@ class Attention(nn.Module):
     """Multi-head attention with decomposed relative position bias over a
     (H, W) token grid (a window, or the whole grid in global blocks). With
     use_flash and H * W >= 128 it runs through K5 over the folded q and k;
-    otherwise the bias is added to the score matrix. lora_rank > 0 makes
-    qkv a LoRAQKV."""
+    otherwise the bias is added to the score matrix. use_rel_pos=False
+    drops the bias and its tables (JAX's switch; SAM-Road always sets it).
+    lora_rank > 0 makes qkv a LoRAQKV."""
 
     def __init__(self, dim: int, num_heads: int, input_size: tuple, use_flash: bool = True,
-                 lora_rank: int = 0):
+                 lora_rank: int = 0, use_rel_pos: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.use_flash = use_flash
         self.lora_rank = lora_rank
+        self.use_rel_pos = use_rel_pos
         head_dim = dim // num_heads
         self.qkv = LoRAQKV(dim, lora_rank) if lora_rank > 0 else nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
-        self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, head_dim))
-        self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, head_dim))
+        if use_rel_pos:
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, head_dim))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, head_dim))
 
     def forward(self, x):
         B, H, W, C = x.shape
@@ -158,6 +161,14 @@ class Attention(nn.Module):
         h = x.reshape(B, H * W, C)
         qkv = self.qkv(h) if self.lora_rank > 0 else linear(h, self.qkv)
         q, k, v = qkv.reshape(B, H * W, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        if not self.use_rel_pos:
+            if self.use_flash and H * W >= 128:
+                out = fused_attention((q * hd ** -0.5).contiguous(), k.contiguous(),
+                                      v.contiguous())
+            else:
+                attn = torch.matmul(q * hd ** -0.5, k.transpose(-1, -2)).float()
+                out = torch.matmul(torch.softmax(attn, dim=-1).to(x.dtype), v)
+            return linear(out.permute(0, 2, 1, 3).reshape(B, H, W, C), self.proj)
         Rh = rel_pos_table(H, self.rel_pos_h).to(x.dtype)
         Rw = rel_pos_table(W, self.rel_pos_w).to(x.dtype)
         if self.use_flash and H * W >= 128:
@@ -210,12 +221,12 @@ class Block(nn.Module):
     """LN -> (windowed) attention -> residual -> LN -> MLP -> residual."""
 
     def __init__(self, dim, num_heads, mlp_ratio, window_size, input_size, use_flash=True,
-                 lora_rank=0):
+                 lora_rank=0, use_rel_pos=True):
         super().__init__()
         self.window_size = window_size
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         attn_size = (window_size, window_size) if window_size > 0 else input_size
-        self.attn = Attention(dim, num_heads, attn_size, use_flash, lora_rank)
+        self.attn = Attention(dim, num_heads, attn_size, use_flash, lora_rank, use_rel_pos)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = MLPBlock(dim, int(dim * mlp_ratio))
 
