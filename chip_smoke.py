@@ -45,6 +45,13 @@ DP_SHARDS and the training CLI under torch.distributed.run. Phase 21, the
 last, runs the inference measurement tools at the bench geometry: the
 phase-1, extraction / phase-2 and phase-2 profilers, the paired engine
 A/B, the batch sweep and the encoder profiler, each printing its JSON line.
+Phase 6 also checks K5's fp32 kernel, and phase 22 runs the training
+measurement tools (the feed profile, the memory table, the throughput
+sweep, the K5 / K6 step A/B, the TOPO profile, the checkpoint parity
+report against the torch oracle), then training steps of
+configs/toponet_vith_256.yaml (K5 and K6 at head_dim 80),
+configs/toponet_vitl_256.yaml and configs/toponet_vitb_1024.yaml (with
+and without REMAT_ENCODER), which never trained on the card before.
 Every kernel's time sits beside its bound (bytes or operations at the
 card's peak rates) and, where one PyTorch call computes the same function,
 that call's time.
@@ -75,6 +82,9 @@ import numpy as np
 from sam_road_tpu_torch.tools.bench import BENCH, REGION, calibrate
 
 TOL = 2e-2  # |kernel - plain_fp32| <= TOL * (1 + |plain_fp32|), bf16 kernels
+# K5's fp32 kernel against its plain version in fp32: the same math summed in
+# another order (fp32 rounding, ~1e-6 relative), with two orders of margin
+TOL_F32 = 1e-4
 COS_MIN = 0.999
 # the bench workload (ViT-B 512 px, batch 32, bf16, FUSED_ENCODER, a 2048 px
 # region): sam_road_tpu_torch/tools/bench.py's, which phase 5 runs
@@ -185,10 +195,6 @@ INFER_MODES = {
 EVAL_GRIDS = ((32, 2032, 256), (300, 1200, 300))
 EVAL_DROPS = 3
 EVAL_APLS_MIN, EVAL_TOPO_MIN = 0.97, 0.98  # ground truth against itself (tests/test_metrics.py)
-K6_PER_FORWARD = {"ln_dense_d": 8, "ln_dense_bias_d": 4, "proj_ln_mlp_residual_d": 12,
-                  "window_attention_rows_grid_d": 8, "attention_relpos_rows_d": 4,
-                  "ln_dense": 12, "window_attention_rows_grid": 8, "attention_relpos_rows": 4,
-                  "proj_ln_mlp_residual": 12}
 TOOL_META = {  # phase 11 kernel -> (CUDA source, the TPU kernel it replaces)
     "ln_mlp_residual": ("sam_road_tpu_torch/csrc/gemm.cu", "sam_road_tpu/ops/fused_ln.py:423"),
     "window_attention_rows": ("sam_road_tpu_torch/csrc/window_attention.cu",
@@ -292,6 +298,18 @@ PROBE_REPS = 20
 GROUP_WINDOW_LOOP = dict(iters=10, rounds=4)
 WINDOW_ATTN_LOOP = dict(iters=30, reps=3)
 RELPOS_LOOP = dict(iters=20, reps=3)
+# phase 22: the training measurement tools at full width, their steps,
+# rounds and batches cut to fit the run; then the training configurations
+# that never ran on the card, at their own geometry (3 steps or more each)
+# 3 timed fed steps a worker count: a smoke check, since at 4-8 workers the
+# batches are made before the timed steps (the steady rate takes the tool's 16)
+FEED_RUN = dict(fed_batches=4, device_steps=5)
+TRAIN_SWEEP_STEPS = 3
+FUSED_AB = dict(steps=4, rounds=2)
+VITH_CONFIG_AB = dict(steps=2, rounds=1)  # with the warm-up, 3 steps an arm
+VITL_CONFIG = "configs/toponet_vitl_256.yaml"
+VITB_1024_CONFIG = "configs/toponet_vitb_1024.yaml"
+MEMORY_1024_STEPS = 2  # after the warm step: 3 steps a configuration
 
 
 def phase(name):
@@ -717,9 +735,9 @@ def check_kernels(B: int, dev: str = "cuda", grid: int = 32):
     return results
 
 
-def fmt_times(row: dict) -> str:
+def fmt_times(row: dict, plain: str = "bf16") -> str:
     lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-    return (f"kernel_ms {row['ms']:.4f} plain_bf16_ms {row['plain_ms']:.4f} library_ms {lib} "
+    return (f"kernel_ms {row['ms']:.4f} plain_{plain}_ms {row['plain_ms']:.4f} library_ms {lib} "
             f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
 
 
@@ -734,22 +752,23 @@ FLASH_CASES = (("window 14x14", 16 * 9, 14, 12, 64), ("global 32x32", 16, 32, 12
                ("vit_h window 14x14", 16 * 4, 14, 16, 80), ("vit_h global 16x16", 16, 16, 16, 80))
 
 
-def flash_cases(dev: str = "cuda", cases=FLASH_CASES):
-    """K5's inputs at its main-path shapes, bf16: random q, k, v [B, heads,
-    N, hd] and rel-pos tables folded by models/vit.py::fold_rel_pos_qk (q~
-    scaled and carrying q.R columns, k~ the exact one-hot position columns,
-    both padded to a multiple of 16), and a cotangent."""
+def flash_cases(dev: str = "cuda", cases=FLASH_CASES, dtype=None):
+    """K5's inputs at its main-path shapes, in `dtype` (bf16 unless given):
+    random q, k, v [B, heads, N, hd] and rel-pos tables folded by
+    models/vit.py::fold_rel_pos_qk (q~ scaled and carrying q.R columns, k~
+    the exact one-hot position columns, both padded to a multiple of 16),
+    and a cotangent."""
     import torch
 
     from sam_road_tpu_torch.models.vit import fold_rel_pos_qk
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    bf = torch.bfloat16
+    dtype = dtype or torch.bfloat16
     for name, B, side, heads, hd in cases:
         N = side * side
 
         def rn(*shape, scale=1.0):
-            return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+            return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
         q, k, v, g = (rn(B, heads, N, hd) for _ in range(4))
         Rh, Rw = (rn(side, side, hd, scale=0.3 * hd ** -0.5) for _ in range(2))
@@ -758,16 +777,21 @@ def flash_cases(dev: str = "cuda", cases=FLASH_CASES):
         yield name, q, k, v, g
 
 
-def check_flash_attention(dev: str = "cuda", cases=FLASH_CASES):
+def check_flash_attention(dev: str = "cuda", cases=FLASH_CASES, dtype=None):
     """Phases 6 and 17: K5 against its plain version at a path's shapes
     (`cases`): the forward, and the autograd.Function's gradients against
-    autograd through the plain version in fp32 on the same bf16 inputs."""
+    autograd through the plain version in fp32 on the same inputs. bf16
+    inputs (the default) run relpos_attention.cu's MODE_FOLDED, within TOL;
+    fp32 ones folded_attention_f32.cu, within TOL_F32, timed against the
+    fp32 peak."""
     import torch
 
     from sam_road_tpu_torch.ops import attention
 
+    fp32 = dtype == torch.float32
+    tol, label = (TOL_F32, "fused_attention_f32") if fp32 else (TOL, "fused_attention")
     shapes = {}
-    for name, q, k, v, g in flash_cases(dev, cases):
+    for name, q, k, v, g in flash_cases(dev, cases, dtype):
         got = attention.fused_attention(q, k, v)
         torch.cuda.synchronize()
         ref = attention.fused_attention_plain(q.float(), k.float(), v.float())
@@ -778,7 +802,7 @@ def check_flash_attention(dev: str = "cuda", cases=FLASH_CASES):
         del got, ref, err
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         attention.fused_attention(*leaves).backward(g)
-        ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        ref_leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
         attention.fused_attention_plain(*ref_leaves).backward(g.float())
         bwd_rel = max(((a.grad.float() - b.grad).abs() / (1 + b.grad.abs())).max().item()
                       for a, b in zip(leaves, ref_leaves))
@@ -788,16 +812,17 @@ def check_flash_attention(dev: str = "cuda", cases=FLASH_CASES):
             out = torch.empty_like(v)
             row = timing_row("fused_attention", (q, k, v), out,
                              lambda: attention.fused_attention(q, k, v),
-                             lambda: attention.fused_attention_plain(q, k, v))
+                             lambda: attention.fused_attention_plain(q, k, v),
+                             peak=PEAK_FP32 if fp32 else PEAK_FLOPS)
             device = fmt_device(with_device_time(
                 row, lambda: attention.fused_attention(q, k, v), dev))
-        ok = finite and fwd_rel <= TOL and bwd_rel <= TOL
-        print(f"kernel fused_attention {name}: q {tuple(q.shape)} v {tuple(v.shape)} "
+        ok = finite and fwd_rel <= tol and bwd_rel <= tol
+        print(f"kernel {label} {name}: q {tuple(q.shape)} v {tuple(v.shape)} "
               f"max_abs_err {max_abs:.3e} max_rel_err {fwd_rel:.3e} grad_max_rel_err "
-              f"{bwd_rel:.3e} (tol {TOL}) {fmt_times(row)} {device} {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"{bwd_rel:.3e} (tol {tol}) {fmt_times(row, 'fp32' if fp32 else 'bf16')} {device} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise SystemExit(f"fused_attention disagrees with its plain version at {name}")
+            raise SystemExit(f"{label} disagrees with its plain version at {name}")
         shapes[name] = dict(max_abs_err=max_abs, grad_max_rel_err=bwd_rel, **row)
     return shapes
 
@@ -1308,7 +1333,7 @@ def run_training_cli(seed: int, work: str, dev: str = "cuda"):
     write_cityscale_fixture(data_root, CLI["IMAGE_SIZE"])
     print(f"wrote the Cityscale-format fixture in {time.time() - t:.1f} s", flush=True)
     fused = run_cli(data_root, work, "fused", {}, CLI_STEPS, dev)
-    want = {k: n * CLI_STEPS for k, n in K6_PER_FORWARD.items()}
+    want = {k: n * CLI_STEPS for k, n in k6_per_forward(12, 4).items()}  # ViT-B
     want["fused_attention"] = 24  # the eval forward and the panels' forward, 12 each
     if fused["launches"] != want:
         raise SystemExit(f"FUSED_ENCODER_TRAIN launches {fused['launches']}, expected {want}")
@@ -3217,6 +3242,185 @@ def run_profilers(dev: str = "cuda", engine: dict | None = None, encoder: dict |
     return out
 
 
+def k6_per_forward(depth: int, n_global: int) -> dict:
+    """K6's launches in one FUSED_ENCODER_TRAIN forward of an encoder of
+    `depth` blocks, `n_global` of them global: each wrapper and the kernel
+    its forward launches."""
+    w = depth - n_global
+    return {"ln_dense_d": w, "ln_dense_bias_d": n_global, "proj_ln_mlp_residual_d": depth,
+            "window_attention_rows_grid_d": w, "attention_relpos_rows_d": n_global,
+            "ln_dense": depth, "window_attention_rows_grid": w,
+            "attention_relpos_rows": n_global, "proj_ln_mlp_residual": depth}
+
+
+def encoder_shape(config) -> tuple:
+    """(depth, global blocks) of the config's encoder."""
+    from sam_road_tpu_torch.models.vit import ENCODER_SPECS
+
+    spec = ENCODER_SPECS[str(config.SAM_VERSION)]
+    return spec["depth"], len(spec["global_attn_indexes"])
+
+
+def positive_times(label: str, values) -> None:
+    if not values or not all(math.isfinite(v) and v > 0 for v in values):
+        raise SystemExit(f"{label}: times or rates not positive and finite: {values}")
+
+
+def check_steps(label: str, run: dict, want: dict | None, min_steps: int, peak=None) -> None:
+    """A tool's training run (`losses`, `grad_norms`, `skipped`, `moved`,
+    `launches`): at least `min_steps` steps, every loss and grad_norm
+    finite, none skipped, every watched parameter moved, and the launches
+    `want` (None: not checked, as off the card)."""
+    peak_text = "none" if peak is None else f"{peak:.3f}"
+    print(f"{label}: losses {', '.join(f'{x:.4f}' for x in run['losses'])}; grad_norms "
+          f"{', '.join(f'{x:.4f}' for x in run['grad_norms'])}; moved {run['moved']}; "
+          f"launches {run['launches']}; peak memory allocated {peak_text} GiB", flush=True)
+    values = run["losses"] + run["grad_norms"]
+    if len(run["losses"]) < min_steps or not all(np.isfinite(values)) or run["skipped"]:
+        raise SystemExit(f"{label}: fewer than {min_steps} steps, a loss or grad_norm not "
+                         "finite, or a step skipped")
+    if not run["moved"] or not all(v > 0 for v in run["moved"].values()):
+        raise SystemExit(f"{label}: a watched parameter did not move: {run['moved']}")
+    if want is not None and run["launches"] != want:
+        raise SystemExit(f"{label}: launches {run['launches']}, expected {want}")
+
+
+def check_fused_ab(label: str, out: dict, config, dev: str) -> None:
+    """experiment_fused_train's two arms: each its steps' checks, the eager
+    arm through K5 alone, the fused arm through K6 alone."""
+    depth, n_global = encoder_shape(config)
+    steps = len(out["eager"]["losses"])
+    want_a = {"fused_attention": depth * steps} if dev == "cuda" else None
+    want_b = ({k: v * steps for k, v in k6_per_forward(depth, n_global).items()}
+              if dev == "cuda" else None)
+    check_steps(f"{label} eager (K5)", out["eager"], want_a, 3, out["peak_gib"])
+    check_steps(f"{label} FUSED_ENCODER_TRAIN (K6)", out["fused"], want_b, 3, out["peak_gib"])
+    positive_times(label, out["eager_s_per_step"] + out["fused_s_per_step"])
+
+
+def check_memory_rows(label: str, res: dict, depth: int, steps: int, dev: str) -> dict:
+    """experiment_train_memory's rows: each configuration's steps (K5
+    launched by every block of every forward, and again in the backward
+    under REMAT_ENCODER; none without FLASH_ATTENTION) and a peak above the
+    arguments on the card. Returns the rows."""
+    rows = {k: v for k, v in res.items() if k != "device"}
+    for key, row in rows.items():
+        flash, remat = (bool(int(part[-1])) for part in key.split("_"))
+        want = None
+        if dev == "cuda":
+            want = {"fused_attention": depth * steps * (2 if remat else 1)} if flash else {}
+            if not row["peak_mb"] > row["arg_mb"] > 0:
+                raise SystemExit(f"{label} {key}: peak {row['peak_mb']} MiB is not above the "
+                                 f"arguments' {row['arg_mb']} MiB")
+        check_steps(f"{label} {key}", row, want, steps + 1,
+                    None if row["peak_mb"] is None else row["peak_mb"] / 2 ** 10)
+    return rows
+
+
+def run_train_tools(seed: int, dev: str = "cuda", small: dict | None = None) -> dict:
+    """Phase 22: the training measurement tools of sam_road_tpu_torch/tools/,
+    each printing its JSON line (profile_training_feed, experiment_train_memory,
+    sweep_train_throughput, experiment_fused_train at the flagship config,
+    profile_topo on a 2048 px tile, verify_real_ckpt --oracle on a SAM-format
+    vit_b fake at 512 px, every stage within 1e-3), then the training
+    configurations never run on the card: configs/toponet_vith_256.yaml
+    through experiment_fused_train (K5's (112, 80) instance in the eager
+    arm, K6 at head_dim 80 in the fused one), configs/toponet_vitl_256.yaml
+    through run_training, and configs/toponet_vitb_1024.yaml with and
+    without REMAT_ENCODER through experiment_train_memory, each with its
+    peak memory. `small` (overrides, a vit_t geometry) rehearses it on the
+    CPU. Returns the launches by run."""
+    from sam_road_tpu_torch.config import load_config, read_flat_yaml
+    from sam_road_tpu_torch.tools import (experiment_fused_train, experiment_train_memory,
+                                          profile_topo, profile_training_feed,
+                                          sweep_train_throughput, verify_real_ckpt)
+
+    over = dict(small or {})
+    tiny = bool(small)
+    launches = {}
+
+    t = time.time()
+    feed = profile_training_feed.main(dev, overrides=over, **FEED_RUN,
+                                      **(dict(image_size=256, spacing=64, batch=2) if tiny
+                                         else {}))
+    positive_times("profile_training_feed", [v for k, v in feed.items()
+                                             if k.startswith(("device_step", "steps_per_s"))])
+    print(f"profile_training_feed took {time.time() - t:.1f} s", flush=True)
+
+    t = time.time()
+    depth, _ = encoder_shape(load_config(overrides={**experiment_train_memory.GEOMETRY, **over}))
+    mem = experiment_train_memory.main(2 if tiny else 16, dev, overrides=over)
+    check_memory_rows("experiment_train_memory", mem, depth, 1, dev)
+    print(f"experiment_train_memory took {time.time() - t:.1f} s", flush=True)
+
+    t = time.time()
+    sweep = sweep_train_throughput.main(TRAIN_SWEEP_STEPS, dev, overrides=over,
+                                        **(dict(batches=(2, 4)) if tiny else {}))
+    for row in sweep["rows"]:
+        want = {"fused_attention": depth * TRAIN_SWEEP_STEPS * (2 if row["remat"] else 1)}
+        if not row["loss_finite"] or (dev == "cuda" and row["launches"] != want):
+            raise SystemExit(f"sweep_train_throughput {row['config']}: loss not finite or "
+                             f"launches {row['launches']}, expected {want}")
+    positive_times("sweep_train_throughput", [r["s_per_step"] for r in sweep["rows"]])
+    print(f"sweep_train_throughput took {time.time() - t:.1f} s", flush=True)
+
+    t = time.time()
+    ab = experiment_fused_train.main(device=dev, overrides=over, **FUSED_AB,
+                                     **(dict(batch=2) if tiny else {}))
+    check_fused_ab("experiment_fused_train", ab, load_config(FLAGSHIP, overrides=over), dev)
+    print(f"experiment_fused_train took {time.time() - t:.1f} s", flush=True)
+
+    t = time.time()
+    topo = profile_topo.main(512 if tiny else 2048)
+    if not (0 < topo["f1"] <= 1 and topo["gt_nodes"] and topo["prop_nodes"]):
+        raise SystemExit(f"profile_topo: {topo}")
+    print(f"profile_topo took {time.time() - t:.1f} s", flush=True)
+
+    t = time.time()
+    with tempfile.TemporaryDirectory(prefix="samroad_ckpt_") as tmp:
+        path = os.path.join(tmp, "sam_vit_b_fake.pth")
+        write_sam_checkpoint(path, seed, sam_version="vit_t" if tiny else "vit_b")
+        ckpt = (verify_real_ckpt.run(path, "vit_t", 64, oracle=True, device=dev) if tiny
+                else verify_real_ckpt.main([path, "--oracle", "--device", dev]))
+    print(json.dumps(ckpt), flush=True)
+    want = {"fused_attention_f32": 12}  # every block of vit_b through K5's fp32 kernel
+    if not ckpt["worst"] < verify_real_ckpt.PASS_TOL or (dev == "cuda"
+                                                         and ckpt["launches"] != want):
+        raise SystemExit(f"verify_real_ckpt: worst stage diff {ckpt['worst']}, launches "
+                         f"{ckpt['launches']} (expected {want})")
+    launches["verify_real_ckpt"] = ckpt["launches"]
+    print(f"verify_real_ckpt took {time.time() - t:.1f} s", flush=True)
+
+    t = time.time()
+    vith = experiment_fused_train.main(batch=None, device=dev, base=VITH_CONFIG,
+                                       overrides=over, **VITH_CONFIG_AB)
+    check_fused_ab(f"{VITH_CONFIG} training", vith, load_config(VITH_CONFIG, overrides=over),
+                   dev)
+    launches["vith_eager"], launches["vith_fused"] = (vith["eager"]["launches"],
+                                                      vith["fused"]["launches"])
+    del vith
+    print(f"{VITH_CONFIG} training took {time.time() - t:.1f} s", flush=True)
+
+    t = time.time()
+    vitl = {**read_flat_yaml(VITL_CONFIG), **over}
+    launches["vitl"] = run_training(seed, dev, overrides=vitl,
+                                    per_forward=encoder_shape(load_config(overrides=vitl))[0])
+    print(f"{VITL_CONFIG} training took {time.time() - t:.1f} s", flush=True)
+
+    t = time.time()
+    cfg = load_config(VITB_1024_CONFIG, overrides=over)
+    mem = experiment_train_memory.main(None, dev, base=VITB_1024_CONFIG, overrides=over,
+                                       flash=(True,), remat=(True, False),
+                                       steps=MEMORY_1024_STEPS)
+    rows = check_memory_rows(f"{VITB_1024_CONFIG} training", mem, encoder_shape(cfg)[0],
+                             MEMORY_1024_STEPS, dev)
+    if dev == "cuda" and not rows["flash1_remat1"]["peak_mb"] < rows["flash1_remat0"]["peak_mb"]:
+        raise SystemExit(f"{VITB_1024_CONFIG}: REMAT_ENCODER did not lower peak memory")
+    launches.update({f"vitb_1024_{k}": row["launches"] for k, row in rows.items()})
+    print(f"{VITB_1024_CONFIG} training took {time.time() - t:.1f} s", flush=True)
+    return launches
+
+
 def mesh_devices(n: int, dev: str = "cuda") -> list:
     """n distinct cards where that many are visible, else `dev` n times."""
     import torch
@@ -3672,11 +3876,15 @@ def main():
     phase("5 engine on the bench workload: the bench tool")
     launches = run_bench()
 
-    phase("6 K5 fused_attention vs plain, forward and gradients")
+    phase("6 K5 fused_attention vs plain, forward and gradients: bf16, then fp32")
     flash = check_flash_attention()
     window = flash["window 14x14"]  # 8 of the 12 launches of a forward pass
+    flash32 = check_flash_attention(dtype=torch.float32)
     results["fused_attention"] = dict(
-        window, max_abs_err=max(r["max_abs_err"] for r in flash.values()), shapes=flash)
+        window, max_abs_err=max(r["max_abs_err"] for r in flash.values()), shapes=flash,
+        fp32=dict(flash32["window 14x14"], source="sam_road_tpu_torch/csrc/"
+                  "folded_attention_f32.cu", tol=TOL_F32, shapes=flash32,
+                  max_abs_err=max(r["max_abs_err"] for r in flash32.values())))
 
     phase(f"7 training: {TRAIN_STEPS} steps and validation at ViT-B 512 px, batch 16, bf16")
     launches.update(run_training(SEED))
@@ -3783,6 +3991,15 @@ def main():
     run_profilers()
     print(f"phase 21 took {time.time() - t:.1f} s", flush=True)
 
+    phase("22 the training measurement tools, and training at vit_h, vit_l and 1024 px")
+    t = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = run_train_tools(SEED)
+    results["fused_attention"]["fp32"]["launches"] = train_launches["verify_real_ckpt"][
+        "fused_attention_f32"]
+    print(f"phase 22 took {time.time() - t:.1f} s", flush=True)
+
     kernels = []
     def vith_fields(name):  # phase 12's head_dim 80 reading and vit_h region launches,
         extra = {"head_dim_80": vith[name]} if name in vith else {}  # phase 17's, 18's, 19's
@@ -3801,6 +4018,8 @@ def main():
             extra["spacenet_launches"] = spacenet
         if name == "fused_attention":
             extra["spacenet_shapes"] = labels["k5"]
+            extra["phase22_train_launches"] = {
+                run: n[name] for run, n in train_launches.items() if name in n}
             extra["ddp_launches"] = {run: [r.get(name, 0) for r in ranks]
                                      for run, ranks in ddp.items()}  # phase 20c, by rank
         if name in dp["total"]:  # phase 20a: DP over the bench workload
@@ -3818,7 +4037,8 @@ def main():
                             launches=launches[name], **results[name], **vith_fields(name)))
     for name, (kernel, src, replaces) in K6_META.items():  # K6: forward and backward
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=k6_launches[name], forward_kernel=kernel, **k6[name]))
+                            launches=k6_launches[name], forward_kernel=kernel, **k6[name],
+                            vith_train_launches=train_launches["vith_fused"][name]))
     for name, (src, replaces) in K10_META.items():  # K7, K8, K10
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=grid_launches[name], **grid[name], **vith_fields(name)))

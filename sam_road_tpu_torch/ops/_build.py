@@ -21,8 +21,9 @@ import shutil
 from sam_road_tpu_torch._native import PKG_DIR, build_and_load
 
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "probes.cu")
-HEADERS = ("mma_bf16.cuh",)  # included by gemm.cu, the attention kernels and probes.cu
+SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "probes.cu",
+           "folded_attention_f32.cu")
+HEADERS = ("mma_bf16.cuh",)  # included by gemm.cu, the bf16 attention kernels and probes.cu
 # --ptxas-options=-v: each instance's registers and spills, in the build log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v"]
@@ -48,6 +49,7 @@ _SIGNATURES = {
     "samroad_window_attention_relpos_batched": [_P] * 6 + [_I] * 5 + [_P],
     "samroad_relpos_attention": [_P] * 6 + [_I] * 5 + [_P],
     "samroad_folded_attention": [_P] * 4 + [_I] * 4 + [_P],
+    "samroad_folded_attention_f32": [_P] * 4 + [_I] * 4 + [_P],
     "samroad_sel_attention": [_P] * 6 + [_I] * 3 + [_P],
     "samroad_window_attn_folded": [_P] * 4 + [_I] * 4 + [_P],
     "samroad_diag_attention": [_P] * 3 + [_I] * 5 + [_P],

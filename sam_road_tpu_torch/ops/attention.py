@@ -39,6 +39,9 @@ smaller D % 8 == 0 is zero-filled to its instance; models/vit.py::
 fold_rel_pos_qk pads to a multiple of 16, so rows stay 16-byte copies), and
 ragged N (the windows' 196 tokens) masked by selects; it tiles every N, so
 the XLA fallback for an N the TPU kernel cannot tile has no counterpart.
+The JAX kernel takes any dtype; on fp32 inputs K5 launches a kernel of its
+own (csrc/folded_attention_f32.cu: the same instances, fp32 FMAs on the
+CUDA cores, counted as fused_attention_f32), and any other dtype raises.
 """
 
 from __future__ import annotations
@@ -141,22 +144,31 @@ def folded_instance(D: int, dv: int) -> tuple:
                      f"got D={D} dv={dv}")
 
 
+# K5's kernels by dtype: (C entry point, launch count name). bf16 is
+# relpos_attention.cu's MODE_FOLDED (wgmma), fp32 folded_attention_f32.cu
+# (fp32 FMAs: TF32 tensor cores would not meet an fp32 tolerance)
+FOLDED_KERNELS = {torch.bfloat16: ("samroad_folded_attention", "fused_attention"),
+                  torch.float32: ("samroad_folded_attention_f32", "fused_attention_f32")}
+
+
 def _flash_forward(q, k, v):
     if _build.on_cpu(q):
         return fused_attention_plain(q, k, v)
     B, H, N, D = q.shape
     dv = v.shape[-1]
     folded_instance(D, dv)
-    bf = torch.bfloat16
-    _build.require(q, "q", bf)
-    _build.require(k, "k", bf, q.shape)
-    _build.require(v, "v", bf, (B, H, N, dv))
-    out = torch.empty((B, H, N, dv), dtype=bf, device=q.device)
-    lib = _build.kernels()
-    _build.check(lib.samroad_folded_attention(
+    if q.dtype not in FOLDED_KERNELS:
+        raise TypeError(f"fused_attention kernel takes bf16 or fp32 q, k and v on CUDA, "
+                        f"got {q.dtype}")
+    entry, name = FOLDED_KERNELS[q.dtype]
+    _build.require(q, "q", q.dtype)
+    _build.require(k, "k", q.dtype, q.shape)
+    _build.require(v, "v", q.dtype, (B, H, N, dv))
+    out = torch.empty((B, H, N, dv), dtype=q.dtype, device=q.device)
+    _build.check(getattr(_build.kernels(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, N, D, dv,
-        _build.stream_of(q)), "fused_attention")
-    _build.launches["fused_attention"] += 1
+        _build.stream_of(q)), name)
+    _build.launches[name] += 1
     return out
 
 
@@ -187,6 +199,8 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q, k, v):
     """K5. q, k [B, H, N, D] (q scaled, rel-pos folded into D), v [B, H, N,
-    dv]; on CUDA all bf16 and contiguous, (D, dv) within folded_instance's
-    set. Returns [B, H, N, dv] in v.dtype."""
+    dv]; on CUDA all bf16 or all fp32 (each dtype its own kernel, counted
+    under its own name: fused_attention, fused_attention_f32) and
+    contiguous, (D, dv) within folded_instance's set; any other dtype
+    raises TypeError. Returns [B, H, N, dv] in v.dtype."""
     return _FusedAttention.apply(q, k, v)

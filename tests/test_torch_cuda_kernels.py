@@ -11,7 +11,7 @@ window and on the global grid, T6-T8 at the probes' shapes and T7 / T8 at
 ragged ones (one key to 1000, scores all negative), and T9-T13 at the
 probes' shapes and at ragged ones (T9 / T10 bit-equal to plain, T12 to
 T11, also at C 99 and at 70000 rows, T13's two launch shapes to each
-other), on an NVIDIA GPU.
+other), and K5's fp32 kernel at every instance, on an NVIDIA GPU.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
 where torch sees no GPU. This file imports neither jax nor the JAX package,
@@ -101,16 +101,17 @@ def test_cuda_kernel_matches_plain_at_bench_shapes(cuda, name):
     assert _build.launches[key] == before[key] + 1
 
 
-def _folded_case(dev, B, side, heads, hd, seed=8):
+def _folded_case(dev, B, side, heads, hd, seed=8, dtype=torch.bfloat16):
     """K5's inputs as the eager encoder builds them: q, k, v [B, heads, side^2,
     hd] and rel-pos tables through models/vit.py::fold_rel_pos_qk (q~ scaled,
-    D = hd + 2 side padded to a multiple of 16), and a cotangent; bf16."""
+    D = hd + 2 side padded to a multiple of 16), and a cotangent; in
+    `dtype` (bf16 unless given)."""
     from sam_road_tpu_torch.models.vit import fold_rel_pos_qk
 
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     N = side * side
     q, k, v, g = (rn(B, heads, N, hd) for _ in range(4))
@@ -119,15 +120,18 @@ def _folded_case(dev, B, side, heads, hd, seed=8):
     return q_aug.contiguous(), k_aug.contiguous(), v, g
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,side,heads,hd", [
+FOLDED_SHAPES = [
     (36, 14, 12, 64),  # ViT-B window: 196 tokens, D 92 -> instance 96
     (4, 16, 12, 64),   # 256 px global (ViT-B, vit_l): D 96
     (4, 32, 12, 64),   # 512 px global: D 128
     (1, 64, 12, 64),   # 1024 px global: D 192
     (16, 14, 16, 80),  # vit_h window: D 108 -> instance 112
     (4, 16, 16, 80),   # vit_h 256 px global: D 112
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,side,heads,hd", FOLDED_SHAPES)
 def test_cuda_fused_attention_forward_and_backward(cuda, B, side, heads, hd):
     """K5 at every instance (DQK, HD) of csrc/relpos_attention.cu's
     MODE_FOLDED, on inputs folded as the encoder folds them, bf16: the
@@ -147,6 +151,46 @@ def test_cuda_fused_attention_forward_and_backward(cuda, B, side, heads, hd):
     for a, b in [(got, ref)] + [(x.grad, y.grad) for x, y in zip(leaves, refs)]:
         assert torch.isfinite(a.float()).all()
         assert ((a.float() - b).abs() / (1 + b.abs())).max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,side,heads,hd", FOLDED_SHAPES)
+def test_cuda_fused_attention_fp32_forward_and_backward(cuda, B, side, heads, hd):
+    """K5's fp32 kernel (csrc/folded_attention_f32.cu) at every instance on
+    fp32 inputs folded as the encoder folds them: the forward and the
+    autograd.Function's gradients within 1e-4 (1 + |ref|) of the plain
+    version under autograd on the same inputs (the same fp32 math summed in
+    another order), counted as fused_attention_f32 and not as the bf16
+    kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _folded_case(cuda, B, side, heads, hd, dtype=torch.float32)
+    before = dict(_build.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = attention.fused_attention(*leaves)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _build.launches["fused_attention_f32"] == before.get("fused_attention_f32", 0) + 1
+    assert _build.launches["fused_attention"] == before.get("fused_attention", 0)
+    refs = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = attention.fused_attention_plain(*refs)
+    ref.backward(g)
+    for a, b in [(got, ref)] + [(x.grad, y.grad) for x, y in zip(leaves, refs)]:
+        assert torch.isfinite(a).all()
+        assert ((a - b).abs() / (1 + b.abs())).max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_fused_attention_refuses_other_dtypes(cuda):
+    """K5 on fp16 (or mixed) inputs raises TypeError and launches nothing."""
+    q = torch.zeros((1, 1, 196, 96), dtype=torch.float16, device=cuda)
+    v = torch.zeros((1, 1, 196, 64), dtype=torch.float16, device=cuda)
+    before = dict(_build.launches)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        attention.fused_attention(q, q, v)
+    with pytest.raises(TypeError):
+        attention.fused_attention(q.float(), q.float(), v)
+    assert dict(_build.launches) == before
 
 
 @pytest.mark.cuda
