@@ -23,7 +23,7 @@ from sam_road_tpu_torch._native import PKG_DIR, build_and_load
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 SOURCES = ("gemm.cu", "window_attention.cu", "relpos_attention.cu", "probes.cu",
            "folded_attention_f32.cu")
-HEADERS = ("mma_bf16.cuh",)  # included by gemm.cu, the bf16 attention kernels and probes.cu
+HEADERS = ("mma_bf16.cuh",)  # included by gemm.cu, every attention kernel and probes.cu
 # --ptxas-options=-v: each instance's registers and spills, in the build log
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v"]

@@ -40,8 +40,9 @@ fold_rel_pos_qk pads to a multiple of 16, so rows stay 16-byte copies), and
 ragged N (the windows' 196 tokens) masked by selects; it tiles every N, so
 the XLA fallback for an N the TPU kernel cannot tile has no counterpart.
 The JAX kernel takes any dtype; on fp32 inputs K5 launches a kernel of its
-own (csrc/folded_attention_f32.cu: the same instances, fp32 FMAs on the
-CUDA cores, counted as fused_attention_f32), and any other dtype raises.
+own (csrc/folded_attention_f32.cu: the same instances, each product as
+three TF32 products on the tensor cores (wgmma), which keeps fp32's
+accuracy; counted as fused_attention_f32), and any other dtype raises.
 """
 
 from __future__ import annotations
@@ -146,7 +147,8 @@ def folded_instance(D: int, dv: int) -> tuple:
 
 # K5's kernels by dtype: (C entry point, launch count name). bf16 is
 # relpos_attention.cu's MODE_FOLDED (wgmma), fp32 folded_attention_f32.cu
-# (fp32 FMAs: TF32 tensor cores would not meet an fp32 tolerance)
+# (each operand split into two TF32 halves, three TF32 products for each
+# fp32 one: a single TF32 product would not meet an fp32 tolerance)
 FOLDED_KERNELS = {torch.bfloat16: ("samroad_folded_attention", "fused_attention"),
                   torch.float32: ("samroad_folded_attention_f32", "fused_attention_f32")}
 

@@ -11,7 +11,8 @@ window and on the global grid, T6-T8 at the probes' shapes and T7 / T8 at
 ragged ones (one key to 1000, scores all negative), and T9-T13 at the
 probes' shapes and at ragged ones (T9 / T10 bit-equal to plain, T12 to
 T11, also at C 99 and at 70000 rows, T13's two launch shapes to each
-other), and K5's fp32 kernel at every instance, on an NVIDIA GPU.
+other), and K5's fp32 kernel at every instance, at ragged N and at B x
+heads past 65535, on an NVIDIA GPU.
 
 The kernels have no CPU mode, so every test here is marked `cuda` and skips
 where torch sees no GPU. This file imports neither jax nor the JAX package,
@@ -153,15 +154,28 @@ def test_cuda_fused_attention_forward_and_backward(cuda, B, side, heads, hd):
         assert ((a.float() - b).abs() / (1 + b.abs())).max().item() <= 2e-2
 
 
+# K5's fp32 kernel off the main path's shapes: ragged N (169 tokens: N % 16
+# = 9; 25 tokens at D 80, a 16-column chunk past D in the 96 instance; 81 at
+# vit_h's instance) and B x heads = 70000 at 16 tokens, past the 65535 a
+# grid's y could hold
+FOLDED_F32_MORE = [
+    (3, 13, 12, 64),
+    (2, 5, 12, 64),
+    (2, 9, 16, 80),
+    (5000, 4, 14, 64),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,side,heads,hd", FOLDED_SHAPES)
+@pytest.mark.parametrize("B,side,heads,hd", FOLDED_SHAPES + FOLDED_F32_MORE)
 def test_cuda_fused_attention_fp32_forward_and_backward(cuda, B, side, heads, hd):
-    """K5's fp32 kernel (csrc/folded_attention_f32.cu) at every instance on
-    fp32 inputs folded as the encoder folds them: the forward and the
-    autograd.Function's gradients within 1e-4 (1 + |ref|) of the plain
-    version under autograd on the same inputs (the same fp32 math summed in
-    another order), counted as fused_attention_f32 and not as the bf16
-    kernel."""
+    """K5's fp32 kernel (csrc/folded_attention_f32.cu: three TF32 products
+    for each fp32 one) at every instance on fp32 inputs folded as the
+    encoder folds them, and at ragged N and B x heads past 65535: the
+    forward and the autograd.Function's gradients within 1e-4 (1 + |ref|)
+    of the plain version under autograd on the same inputs (fp32 math, the
+    products split into TF32 halves and summed in another order), counted
+    as fused_attention_f32 and not as the bf16 kernel."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, g = _folded_case(cuda, B, side, heads, hd, dtype=torch.float32)
     before = dict(_build.launches)
