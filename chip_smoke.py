@@ -41,10 +41,17 @@ four times; masks bit-equal to one device's, K1-K4 launched on every
 shard), configs/toponet_vitb_1024.yaml token-sharded over 4 and over 1 (the
 SP encoder against the fp32 eager one), DDP training steps over gloo and
 NCCL against one process, and the inference CLI with SP_SHARDS /
-DP_SHARDS and the training CLI under torch.distributed.run. Phase 21, the
-last, runs the inference measurement tools at the bench geometry: the
+DP_SHARDS and the training CLI under torch.distributed.run. Phase 21
+runs the inference measurement tools at the bench geometry: the
 phase-1, extraction / phase-2 and phase-2 profilers, the paired engine
-A/B, the batch sweep and the encoder profiler, each printing its JSON line.
+A/B, the batch sweep and the encoder profiler, each printing its JSON line;
+phase 23 then runs the engine's pipeline modes over the bench region, each
+as arm B of the paired A/B tool against the whole-region path (the default
+streamed phase 1 and its band, taper and upload variants, the banded
+upload, fetch waves, packed arguments, device aggregation, here and on a
+768 px region where it engages, and the speculative phase 2, here and on
+a region where it must hit), every arm's masks, nodes and edges bit-equal
+to the whole-region path's, and infer_tiles against one region at a time.
 Phase 6 also checks K5's fp32 kernel, and phase 22 runs the training
 measurement tools (the feed profile, the memory table, the throughput
 sweep, the K5 / K6 step A/B, the TOPO profile, the checkpoint parity
@@ -294,6 +301,31 @@ PROFILE_ROUNDS = 3
 SWEEP_BATCHES = (16, 32, 64)
 SWEEP_RUNS = 1
 AB_B = {"FUSED_ENCODER": False}
+# phase 23: the engine's pipeline modes on the bench region, each arm B of a
+# paired same-process A/B (sam_road_tpu_torch/tools/abtest_engine.py) against
+# A, the whole-region path; every arm's masks, nodes and edges bit-equal to A's
+PIPELINE_A = {"INFER_STREAM_PHASE1": False}
+PIPELINE_ARMS = {
+    "stream_4_taper": {},  # the default config
+    "stream_2_even": {"INFER_STREAM_BANDS": 2, "INFER_STREAM_TAPER": False},
+    "concurrent_upload": {"INFER_STREAM_SERIAL_UPLOAD": False},
+    "upload_bands_4": {"INFER_STREAM_PHASE1": False, "INFER_UPLOAD_BANDS": 4},
+    "fetch_waves_2": {"INFER_P2_FETCH_WAVES": 2},
+    "pack_args": {"INFER_P2_PACK_ARGS": True},
+    "device_agg": {"INFER_P2_DEVICE_AGG": True},
+    "speculative": {"INFER_P2_SPECULATIVE": True},
+}
+# paired rounds, each every arm and then A once (abtest_engine.arms); the
+# default config's run before them is the phase's one warm run, so the arms
+# take none of their own (warm=False)
+PIPELINE_ROUNDS = 2
+# the device aggregation's second region: at the bench's vertex density its
+# unique edges fit the uint16 ids (E_pad <= 65535), which the bench region's
+# very likely exceed
+AGG_REGION = 768
+# infer_tiles (tile i's host half while tile i + 1's phase 1 runs) over
+# TILES regions of TILE px against the same regions one by one
+TILES, TILE = 3, 1024
 BLOCK_LOOP = dict(iters=10, reps=3)
 PROBE_REPS = 20
 GROUP_WINDOW_LOOP = dict(iters=10, rounds=4)
@@ -2330,7 +2362,7 @@ def run_spacenet_infer(root: str, work: str, trained: dict, dev: str = "cuda"):
     from sam_road_tpu_torch.data.dataset import read_rgb_img
     from sam_road_tpu_torch.data.partitions import get_patch_info_one_img
     from sam_road_tpu_torch.data.png import read_png
-    from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
+    from sam_road_tpu_torch.inference.engine import TiledInferenceEngine, _unpack_bits
     from sam_road_tpu_torch.models.convert import load_weights
     from sam_road_tpu_torch.ops import _build
 
@@ -2347,8 +2379,9 @@ def run_spacenet_infer(root: str, work: str, trained: dict, dev: str = "cuda"):
     # observation is kept
     scores, scores_q = [], engine._scores_q
 
-    def record(feats, points, pairs, valid):
-        q = scores_q(feats, points, pairs, valid)
+    def record(feats, points, tgt, valid_packed):
+        q = scores_q(feats, points, tgt, valid_packed)
+        valid = _unpack_bits(valid_packed, tgt.shape[-1])
         scores.append(q[..., 0][valid].float().cpu().numpy() / 32767.0)
         return q
 
@@ -3243,6 +3276,135 @@ def run_profilers(dev: str = "cuda", engine: dict | None = None, encoder: dict |
     return out
 
 
+def check_arm(name: str, res: dict) -> dict:
+    """One phase-23 arm's A/B result: printed, and refused unless arm B's
+    masks, nodes and edges equal arm A's and the graph is not empty."""
+    print(f"{name}: A least {res['a_min']} s median {res['a_median']} s; B least "
+          f"{res['b_min']} s median {res['b_median']} s; paired median A - B "
+          f"{res['paired_delta_median']} s; graph {res['b_graph']}; B's last timings "
+          f"{res['b_timings'][-1]}; A's {res['a_timings'][-1]}"
+          + (f"; speculation {res['b_spec_last']}" if "b_spec_last" in res else "")
+          + (f"; device aggregation {res['b_agg_last']}" if "b_agg_last" in res else ""),
+          flush=True)
+    if not res["same_outputs"]:
+        raise SystemExit(f"{name}: arm B's masks, nodes or edges differ from arm A's")
+    if not all(res["a_graph"] + res["b_graph"]):
+        raise SystemExit(f"{name}: an empty graph {res['a_graph']} / {res['b_graph']}")
+    return res
+
+
+def spec_region(img: np.ndarray, masks_of, frontier: int):
+    """The region and thresholds where the speculative phase 2 must hit:
+    `img` with its columns from `frontier` (the last band's anchor) on
+    black, and each threshold half a level above its mask's maximum there
+    (`masks_of(region)`: the (keypoint, road) uint8 masks at thresholds
+    1.0). No candidate then lies right of the frontier, so the provisional
+    vertices are the final ones. Elsewhere they are not: the final NMS
+    visits tied priorities in np.argsort's order, which moves with the
+    candidate count, so a vertex anywhere may change."""
+    region = img.copy()
+    region[:, frontier:] = 0
+    kp, road = masks_of(region)
+    return region, dict(ITSC_THRESHOLD=(float(kp[:, frontier:].max()) + 0.5) / 255.0,
+                        ROAD_THRESHOLD=(float(road[:, frontier:].max()) + 0.5) / 255.0)
+
+
+def run_pipeline_modes(seed: int, dev: str = "cuda", base: dict | None = None,
+                       region: int = REGION, agg_region: int = AGG_REGION,
+                       rounds: int = PIPELINE_ROUNDS, per_batch: dict = BENCH_PER_BATCH,
+                       tiles: int = TILES, tile: int = TILE):
+    """Phase 23: the engine's pipeline modes over the bench workload (BENCH
+    plus `base`, seeded weights, the rng(0) region). First the default
+    config once, at the bench tool's thresholds: its stream plan, its
+    batches and its launches (`per_batch` of each kernel a batch); that
+    run is the phase's warm run. Then every arm of PIPELINE_ARMS as an arm
+    B of abtest_engine.arms against A = PIPELINE_A (`rounds` rounds, each
+    every arm and then A, at the same thresholds, no warm runs of their
+    own, the outputs of the last round compared); the device aggregation
+    again on an `agg_region` px region (thresholds calibrated on it, which
+    warms it), where it must engage; the speculative phase 2 on
+    spec_region's region, where it must hit; and `tiles` regions of `tile`
+    px through infer_tiles against one by one, equal. Any arm whose outputs
+    differ from A's ends the run. Returns {"launches", "plan", "arms",
+    "tiles"}."""
+    from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
+    from sam_road_tpu_torch.ops import _build
+    from sam_road_tpu_torch.tools import abtest_engine, bench
+
+    base = base or {}
+    model = init_random(SAMRoad.from_config(bench.bench_config(base)), seed)
+    img = bench.make_region(region)
+    engine = bench.make_engine(dev, base, model)
+    thresholds = calibrate(engine, img)
+    _build.reset_launches()
+    p1 = engine._run_phase1(img)
+    nodes, edges, _, _ = engine._finish(p1)
+    launches = dict(_build.launches)
+    plan, batches = p1["plan"], len(p1["batches"])
+    columns = [(b["i0"], b["i1"]) for b in plan] if plan else None
+    print(f"the default config on the {region} px region: stream plan {plan} (patch index "
+          f"ranges {columns}), {batches} batches, {len(p1['masks'])} mask chunks; nodes "
+          f"{nodes.shape[0]} edges {edges.shape[0]}; timings {engine.last_timings}; "
+          f"launches {launches}", flush=True)
+    if plan is None:
+        raise SystemExit("the default config did not take the streamed phase 1")
+    want = {k: n * batches for k, n in per_batch.items()}
+    if launches != want:
+        raise SystemExit(f"streamed region launches {launches}, expected {want}")
+    del engine, p1
+    t = time.time()
+    arms = abtest_engine.arms(PIPELINE_ARMS, rounds, PIPELINE_A, dev, model=model, base=base,
+                              region=img, thresholds=thresholds, warm=False)
+    for name, res in arms.items():
+        check_arm(name, res)
+    print(f"the {len(arms)} arms took {time.time() - t:.1f} s", flush=True)
+    name = f"device_agg_{agg_region}px"
+    arms[name] = check_arm(name, abtest_engine.main(
+        PIPELINE_ARMS["device_agg"], rounds, PIPELINE_A, dev, model=model, base=base,
+        region=bench.make_region(agg_region), warm=False))
+    agg = {k: arms[k].get("b_agg_last") for k in ("device_agg", name)}
+    print(f"device aggregation by region (E unique directed edges, E_pad the "
+          f"accumulator's rows, path taken): {agg}", flush=True)
+    if not any(a and a["path"] == "device" for a in agg.values()):
+        raise SystemExit(f"the device aggregation engaged on no region: {agg}")
+
+    whole = bench.make_engine(dev, {**base, **PIPELINE_A}, model)
+
+    def masks_of(r):
+        whole.config.ITSC_THRESHOLD = whole.config.ROAD_THRESHOLD = 1.0
+        return whole.infer_one_img(r)[2:]
+
+    spec_img, spec_thresholds = spec_region(img, masks_of, plan[-1]["a"])
+    name = "speculative_hits"
+    arms[name] = check_arm(name, abtest_engine.main(
+        PIPELINE_ARMS["speculative"], 1, PIPELINE_A, dev, model=model, base=base,
+        region=spec_img, thresholds=spec_thresholds, warm=False))
+    spec = {k: arms[k]["b_spec_last"] for k in ("speculative", name)}
+    print(f"speculation by region (the bench region; its columns from {plan[-1]['a']} "
+          f"black at thresholds {spec_thresholds}): {spec}", flush=True)
+    if spec[name]["spec_hits"] < 1:
+        raise SystemExit(f"the speculative phase 2 hit on no region: {spec}")
+    del whole
+
+    engine = bench.make_engine(dev, base, model)
+    regions = [np.random.default_rng(s).integers(0, 255, (tile, tile, 3), dtype=np.uint8)
+               for s in range(1, tiles + 1)]
+    calibrate(engine, regions[0])
+    t = time.time()
+    tiled = list(engine.infer_tiles(regions))
+    tiled_s = time.time() - t
+    t = time.time()
+    single = [engine.infer_one_img(r) for r in regions]
+    single_s = time.time() - t
+    print(f"infer_tiles over {tiles} regions of {tile} px: {tiled_s:.3f} s, one by one "
+          f"{single_s:.3f} s", flush=True)
+    for a, b in zip(tiled, single):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise SystemExit("infer_tiles differs from infer_one_img")
+    return dict(launches=launches, plan=plan, arms=arms,
+                tiles=dict(tiles=tiles, tile=tile, tiled_s=tiled_s, single_s=single_s))
+
+
 def k6_per_forward(depth: int, n_global: int) -> dict:
     """K6's launches in one FUSED_ENCODER_TRAIN forward of an encoder of
     `depth` blocks, `n_global` of them global: each wrapper and the kernel
@@ -3993,6 +4155,15 @@ def main():
     run_profilers()
     print(f"phase 21 took {time.time() - t:.1f} s", flush=True)
 
+    phase("23 the engine's pipeline modes on the bench region: streamed phase 1, banded "
+          "upload, fetch waves, packed arguments, device aggregation, speculative phase 2, "
+          "each paired against the whole-region path; infer_tiles")
+    t = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline = run_pipeline_modes(SEED)
+    print(f"phase 23 took {time.time() - t:.1f} s", flush=True)
+
     phase("22 the training measurement tools, and training at vit_h, vit_l and 1024 px")
     t = time.time()
     gc.collect()
@@ -4024,6 +4195,8 @@ def main():
                 run: n[name] for run, n in train_launches.items() if name in n}
             extra["ddp_launches"] = {run: [r.get(name, 0) for r in ranks]
                                      for run, ranks in ddp.items()}  # phase 20c, by rank
+        if name in pipeline["launches"]:  # phase 23: the default config's streamed region
+            extra["stream_region_launches"] = pipeline["launches"][name]
         if name in dp["total"]:  # phase 20a: DP over the bench workload
             extra["dp_region_launches"] = dict(
                 shards=dp["shards"], rounds=dp["rounds"], batch=dp["batch"],

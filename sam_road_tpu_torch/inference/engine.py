@@ -1,7 +1,7 @@
 """Tiled region inference (counterpart of sam_road_tpu/inference/engine.py:
-its single-device path and its two mesh paths).
+its single-device paths, its two mesh paths and its phase-2 modes).
 
-  phase 1  upload the uint8 region once, crop each batch of patches on the
+  phase 1  crop each batch of patches out of the uint8 region on the
            device, run the encoder (fused kernels with FUSED_ENCODER, which
            LoRA and the SAM decoder refuse; else the eager encoder, K5) and
            the mask decoder, fuse the masks as int32 fixed point (1/1024)
@@ -11,41 +11,89 @@ its single-device path and its two mesh paths).
            per-patch pairs (inference/pairs.py, native kNN);
   phase 2  per batch: sample the cached features bilinearly, score the pairs
            with TopoNet, quantise the scores to int16 (-32768 for NaN); the
-           host aggregates per edge in exact int64.
+           per-edge averages are exact int64 sums.
 
-Phase-2 batches are dispatched before any score is fetched, so the device
-scores batch i while the host builds the pairs of batch i + 1.
+Phase 1 takes the first of these paths that applies (_run_phase1, in the
+JAX engine's order):
+  DP        (a mesh of n > 1 devices, SP_SHARDS 0) spatial banding: shard d
+            takes a contiguous chunk of patch rows (band_assignment, as JAX's
+            _band_assignment), runs its rounds of INFER_BATCH_SIZE / n
+            patches on its own device (K1-K4 there with FUSED_ENCODER) and
+            fuses into an int32 band of band_h rows; the bands are added at
+            their row offsets on the first shard's device. Phase 2 pools
+            round r's slot j of every shard into one batch of
+            INFER_BATCH_SIZE patches, scored on the first shard's device.
+            None of the modes below applies to it, as in JAX.
+  streamed  (INFER_STREAM_PHASE1, the default, where _stream_plan finds a
+            split) the patch grid cut at patch-column boundaries into
+            INFER_STREAM_BANDS bands of whole batches (INFER_STREAM_TAPER:
+            the end bands about half an interior band wide). The region
+            crosses to the device as disjoint column slabs; band i assembles
+            its pixels from them, starts its accumulator from band i - 1's
+            overlapping columns, runs its batches, and finalises the columns
+            left of band i + 1's anchor, whose copy to the host starts at
+            once. INFER_STREAM_SERIAL_UPLOAD keeps one slab upload in
+            flight: slab i + 1 is sent after band i's dispatch, and the host
+            waits for it. Under SP the band step runs the SP encoder.
+  banded    (INFER_UPLOAD_BANDS > 1, one device) the region in that many row
+            slabs, all sent before the first band runs; band i's batches
+            crop from its slab and fuse into a slab-sized accumulator
+            (partial batches padded with patches that fuse nowhere); the
+            bands are added at their offsets.
+  whole     one upload of the region, its batches in order.
+  SP        (SP_SHARDS >= 1, a mesh of that many devices) is not a path of
+            its own: every patch's encoder runs token-row sharded over the
+            mesh (parallel/seq_parallel.py), FUSED_ENCODER off as in JAX, on
+            the streamed or whole path, on the first shard's device.
+            SP_SHARDS 1 is JAX's measurement mode: the SP machinery over one
+            device.
+Every path runs the same patches in batches of the same patches (DP and
+banded: the same patches a batch in another grouping), and integer sums are
+exact in any order, so each path's masks equal the whole path's bit for
+bit wherever each patch's masks do.
 
-With a mesh (parallel/mesh.py), one process drives every shard:
-  DP       (a mesh of n > 1 devices, SP_SHARDS 0) spatial banding: shard d
-           takes a contiguous chunk of patch rows (band_assignment, as JAX's
-           _band_assignment), runs its rounds of INFER_BATCH_SIZE / n
-           patches on its own device (K1-K4 there with FUSED_ENCODER) and
-           fuses into an int32 band of band_h rows; the bands are added at
-           their row offsets on the first shard's device. Integer sums are
-           exact in any order, so the masks equal the single-device
-           engine's bit for bit wherever each patch's masks do. Phase 2
-           pools round r's slot j of every shard into one batch of
-           INFER_BATCH_SIZE patches, scored on the first shard's device.
-  SP       (SP_SHARDS >= 1, a mesh of that many devices) every patch's
-           encoder runs token-row sharded over the mesh
-           (parallel/seq_parallel.py); FUSED_ENCODER is turned off, as in
-           JAX. The rest of the path is the single-device one, on the first
-           shard's device. SP_SHARDS 1 is JAX's measurement mode: the SP
-           machinery over one device.
+Phase 2 (_dispatch_phase2, _collect_scores) as the JAX engine runs it:
+  - compact arguments: uint16 points, int16 target indices and the validity
+    as np.packbits bits; the device rebuilds the source indices (the row)
+    and unpacks the bits (_scores_q);
+  - every batch is dispatched before any score is fetched, so the device
+    scores batch i while the host builds the pairs of batch i + 1;
+  - one stacked copy to the host per distinct score shape, cut to the real
+    point count rounded up to 32; INFER_P2_FETCH_WAVES splits a shape's
+    batches into that many waves in dispatch order;
+  - INFER_P2_PACK_ARGS: one upload per kind of argument for every batch,
+    sliced per batch on the device;
+  - INFER_P2_DEVICE_AGG (one device, no SP): the host numbers the unique
+    directed edges (uint16 vertex-id halves) and sends every slot's edge id
+    in one upload; each batch adds (score, 1, is-NaN) into an int32
+    [E_pad + 1, 3] accumulator (invalid slots into the E_pad row) by
+    index_add_, fetched once and decoded as the host path decodes. Regions
+    of _AGG_MAX_VERTS vertices or more, or with E_pad > _AGG_MAX_EDGE_PAD,
+    fall back to the host aggregation and say so;
+  - INFER_P2_SPECULATIVE (streamed, one device, no SP, neither of the two
+    above): after phase 1's dispatch, wait for every mask chunk but the
+    last, extract provisional vertices from them and dispatch the batches
+    whose patches end INFER_P2_SPEC_GUARD px (0: 2 * ROAD_NMS_RADIUS) left
+    of the last band's anchor; _finish takes such a batch's scores only
+    where its pair arguments equal the final ones byte for byte, and
+    dispatches it again otherwise.
+No mode changes a result: the outputs equal the default path's bit for bit.
+`last_timings` holds the JAX engine's keys: phase1, extract, phase2, total
+and the phase-2 split p2_build / p2_dispatch / p2_fetch, with spec_* where
+speculation ran.
 
-Config keys the port ignores, because they exist for a TPU behind a slow
-host link: INFER_STREAM_PHASE1 / _BANDS / _TAPER / _SERIAL_UPLOAD,
-INFER_UPLOAD_BANDS, INFER_P2_SPECULATIVE / _SPEC_GUARD / _PACK_ARGS /
-_DEVICE_AGG / _FETCH_WAVES, and FUSED_ENCODER_TRAIN. Streaming and device
-aggregation change no result in the JAX engine (its masks and edges are
-bit-identical either way), so the port's outputs are comparable with its
-default configuration.
+On CUDA the streamed and banded slabs go through pinned host buffers on a
+copy stream of their own, which the compute stream waits for by events,
+and the mask chunks come back by non-blocking copies into pinned buffers,
+each read after its event. On the CPU, which the caller names, the same
+logic runs with ordinary copies. FUSED_ENCODER_TRAIN is a training key:
+the engine does not read it.
 """
 
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,6 +106,17 @@ from sam_road_tpu_torch.parallel.mesh import on_device, replicate, replicated_sh
 from sam_road_tpu_torch.parallel.seq_parallel import make_sp_encoder_body
 
 MASK_QUANT = 1024
+NAN_Q = -(2 ** 15)  # the int16 score of a NaN
+
+# The device aggregation sends vertex ids and edge ids as uint16; larger
+# regions fall back to the host aggregation (module-level, so that tests
+# can lower them, as the JAX engine's tests do).
+_AGG_MAX_VERTS = 65536
+_AGG_MAX_EDGE_PAD = 65535
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 def _bucket_size(x: int, minimum: int) -> int:
@@ -115,6 +174,111 @@ def _finalize(fused, counter):
     return (avg * 255.0).to(torch.uint8)
 
 
+def fine_timings() -> dict:
+    """The phase-2 split's host seconds, from zero (last_timings' p2_* keys)."""
+    return {"p2_build": 0.0, "p2_dispatch": 0.0, "p2_fetch": 0.0}
+
+
+class _Args(NamedTuple):
+    """One batch's phase-2 pairs and compact arguments (_build_args)."""
+    per_patch: list  # build_pairs_for_boxes's (pidx, pts, pairs, valid), a patch each
+    points: np.ndarray  # uint16 [b, S, 2]
+    tgt: np.ndarray  # int16 [b, S, K]
+    valid_packed: np.ndarray  # uint8 [b, S, ceil(K / 8)], np.packbits
+    S: int
+    valid: np.ndarray  # bool [b, S, K]
+
+
+class _SpecEntry(NamedTuple):
+    """A speculative batch: its int16 scores on the device and the
+    arguments they were dispatched with."""
+    q: torch.Tensor
+    points: np.ndarray
+    tgt: np.ndarray
+    valid_packed: np.ndarray
+    S: int
+
+
+def _as_int16(a: np.ndarray) -> torch.Tensor:
+    """A uint16 host array as the int16 tensor of the same bytes (torch's
+    uint16 has few operations); _uint16 reads it back."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+
+
+def _uint16(t: torch.Tensor) -> torch.Tensor:
+    """The uint16 values of an int16 tensor of uint16 bytes, as int64."""
+    return t.to(torch.int32).bitwise_and(0xFFFF).long()
+
+
+def _unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """np.unpackbits(packed, -1)[..., :n] as bool, on packed's device (bits
+    big-endian within a byte: np.packbits's layout)."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :n].bool()
+
+
+class _HostCopy:
+    """A device tensor's copy to the host, started at construction. On
+    CUDA: a non-blocking copy into a pinned buffer on the current stream,
+    read only after its event; on the CPU the tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type == "cuda":
+            self.buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.buf.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+        else:
+            self.buf = t
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.buf.numpy()
+
+
+class _Uploads:
+    """Host arrays to `device`. On CUDA each goes through a pinned host
+    buffer and a non-blocking copy on a stream of its own, allocated there
+    and recorded for the compute stream; `use` makes the compute stream
+    wait for it. On the CPU the array itself."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def put(self, a: np.ndarray):
+        """Starts a's copy; returns (tensor, event or None)."""
+        if self.stream is None:
+            return torch.from_numpy(np.ascontiguousarray(a)), None
+        pinned = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                             pin_memory=True)
+        pinned.numpy()[...] = a
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            t = torch.empty(a.shape, dtype=pinned.dtype, device=self.device)
+            t.copy_(pinned, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        t.record_stream(compute)
+        return t, event
+
+    @staticmethod
+    def wait(upload) -> None:
+        """The host waits until the upload has landed."""
+        if upload[1] is not None:
+            upload[1].synchronize()
+
+    def use(self, upload) -> torch.Tensor:
+        """The uploaded tensor, with the compute stream ordered after its copy."""
+        t, event = upload
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+        return t
+
+
 class TiledInferenceEngine:
     """Whole-region inference with a fixed config and model, on `device`,
     or with `mesh` over its devices (the first one holds the masks and runs
@@ -157,7 +321,11 @@ class TiledInferenceEngine:
         self.replicas = [self.model] if mesh is None else replicate(self.model, mesh)
         if self.sp_shards >= 1:
             self.encoder = self._sp_encoder()
+        self.uploads = _Uploads(self.device)
         self.last_timings: dict = {}
+        # the device aggregation's last region: vertices, E, E_pad and the
+        # path it took ("device" or "host")
+        self.last_agg: dict | None = None
 
     def _sp_encoder(self):
         """encoder(module, x) for infer_masks_and_features: x's pixel rows
@@ -197,8 +365,10 @@ class TiledInferenceEngine:
 
     @torch.no_grad()
     def _run_phase1(self, img: np.ndarray):
-        """Dispatch phase 1 for a region; returns device tensors that may
-        still be computing."""
+        """Dispatch phase 1 for a region; returns its batches, its uint8
+        mask chunks on the device (column bands, left to right: one for
+        every path but the streamed one) and their copies to the host,
+        which may still be running."""
         t0 = time.time()
         if img.ndim != 3 or img.shape[0] != img.shape[1] or img.shape[2] != 3:
             raise ValueError(f"region must be square HxWx3, got {img.shape}")
@@ -208,24 +378,45 @@ class TiledInferenceEngine:
         size = img.shape[0]
         infos = get_patch_info_one_img(0, size, cfg.SAMPLE_MARGIN, self.patch_size,
                                        cfg.INFER_PATCHES_PER_EDGE)
-        img_t = torch.from_numpy(np.ascontiguousarray(img))
-        if self.n_shards > 1:
-            batches, masks = self._phase1_banded(img_t, infos)
-        else:
-            dev = self.device
-            img_dev = img_t.to(dev)
-            fused = torch.zeros((size, size, 2), dtype=torch.int32, device=dev)
-            counter = torch.zeros((size, size), dtype=torch.int32, device=dev)
-            batches = []
-            with on_device(dev):
-                for b0 in range(0, len(infos), self.batch_size):
-                    info = infos[b0:b0 + self.batch_size]
-                    xy = [i[1] for i in info]
-                    quant, feats = self._phase1_batch(self.model, img_dev, xy)
-                    _accumulate(fused, counter, quant, xy)
-                    batches.append((feats, info))
-                masks = _finalize(fused, counter)
-        return dict(batches=batches, masks=masks, t0=t0)
+        B = self.batch_size
+        spec = plan = None
+        with on_device(self.device):
+            if self.n_shards > 1:
+                batches, masks = self._phase1_banded(
+                    torch.from_numpy(np.ascontiguousarray(img)), infos)
+                chunks, copies = [masks], [_HostCopy(masks)]
+            elif (bool(cfg.INFER_STREAM_PHASE1) and len(infos) > B
+                  and (plan := self._stream_plan(infos, size,
+                                                 int(cfg.INFER_STREAM_BANDS or 2))) is not None):
+                batches, chunks, copies = self._phase1_streamed(img, infos, plan)
+                if (bool(cfg.INFER_P2_SPECULATIVE) and len(plan) >= 2 and self.sp_shards < 1
+                        and not bool(cfg.INFER_P2_PACK_ARGS)
+                        and not bool(cfg.INFER_P2_DEVICE_AGG)):
+                    spec = self._speculate_phase2(plan, batches, copies)
+            elif self.sp_shards < 1 and int(cfg.INFER_UPLOAD_BANDS or 1) > 1 and len(infos) > B:
+                batches, masks = self._phase1_banded_upload(img, infos,
+                                                            int(cfg.INFER_UPLOAD_BANDS))
+                chunks, copies = [masks], [_HostCopy(masks)]
+            else:
+                batches, masks = self._phase1_whole(img, infos)
+                chunks, copies = [masks], [_HostCopy(masks)]
+        return dict(image_size=size, batches=batches, masks=tuple(chunks), copies=copies,
+                    plan=plan, spec=spec, t0=t0)
+
+    def _phase1_whole(self, img, infos):
+        """One upload of the region, then its batches in order."""
+        dev, size = self.device, img.shape[0]
+        img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+        fused = torch.zeros((size, size, 2), dtype=torch.int32, device=dev)
+        counter = torch.zeros((size, size), dtype=torch.int32, device=dev)
+        batches = []
+        for b0 in range(0, len(infos), self.batch_size):
+            info = infos[b0:b0 + self.batch_size]
+            xy = [i[1] for i in info]
+            quant, feats = self._phase1_batch(self.model, img_dev, xy)
+            _accumulate(fused, counter, quant, xy)
+            batches.append((feats, info))
+        return batches, _finalize(fused, counter)
 
     def _phase1_banded(self, img_t, infos):
         """DP phase 1: every shard runs `rounds` rounds of b patches on its
@@ -267,83 +458,461 @@ class TiledInferenceEngine:
             batches.append(([feats[d][r] for d in range(n)], info))
         return batches, masks
 
+    def _phase1_banded_upload(self, img, infos, n_bands: int):
+        """INFER_UPLOAD_BANDS (JAX's _phase1_banded_upload): the patch rows
+        in n_bands contiguous groups; each group's row slab (slab_h rows,
+        the tallest group's span) is sent before the first band runs, so
+        band i + 1's pixels cross while band i computes. Band i's rounds of
+        B patches crop from its slab (slab-local rows; a partial round is
+        padded with patches at (0, 0) that fuse nowhere) into a slab-sized
+        accumulator; the bands are added at their row offsets."""
+        B, p, dev = self.batch_size, self.patch_size, self.device
+        H, W = img.shape[:2]
+        rows = sorted({info[1][1] for info in infos})
+        n_bands = max(1, min(n_bands, len(rows)))
+        base, extra = divmod(len(rows), n_bands)
+        groups, r = [], 0
+        for d in range(n_bands):
+            take = base + (1 if d < extra else 0)
+            groups.append(set(rows[r:r + take]))
+            r += take
+        band_idxs = [[gi for gi, info in enumerate(infos) if info[1][1] in g] for g in groups]
+        slab_h = max(max(infos[gi][1][1] for gi in ix) - min(infos[gi][1][1] for gi in ix) + p
+                     for ix in band_idxs)
+        offs, slabs = [], []
+        for ix in band_idxs:
+            y_lo = min(min(infos[gi][1][1] for gi in ix), H - slab_h)
+            offs.append(y_lo)
+            slabs.append(self.uploads.put(img[y_lo:y_lo + slab_h]))
+        fused = torch.zeros((H, W, 2), dtype=torch.int32, device=dev)
+        counter = torch.zeros((H, W), dtype=torch.int32, device=dev)
+        batches = []
+        for off, slab, ix in zip(offs, slabs, band_idxs):
+            slab = self.uploads.use(slab)
+            band = torch.zeros((slab_h, W, 2), dtype=torch.int32, device=dev)
+            cnt = torch.zeros((slab_h, W), dtype=torch.int32, device=dev)
+            for r0 in range(0, len(ix), B):
+                sel = ix[r0:r0 + B]
+                xy = [(infos[gi][1][0], infos[gi][1][1] - off) for gi in sel]
+                quant, feats = self._phase1_batch(self.model, slab,
+                                                  xy + [(0, 0)] * (B - len(xy)))
+                _accumulate(band, cnt, quant, xy)
+                batches.append((feats, [infos[gi] for gi in sel] + [None] * (B - len(sel))))
+            fused[off:off + slab_h] += band
+            counter[off:off + slab_h] += cnt
+        return batches, _finalize(fused, counter)
+
+    def _stream_plan(self, all_patch_info, image_size: int, n_bands: int = 2):
+        """The streamed phase 1's bands (JAX's _stream_plan): the patch grid
+        split at patch-column boundaries (patches are x-major) that leave
+        every band whole batches. Returns [{i0, i1, a, e}] (patch index
+        range, the accumulator's first column, its end column: band 0
+        anchors at 0 and the last band ends at the image's edge, so the
+        margins finalise with them), or None where no split exists or the
+        first band would cover the image."""
+        B, p = self.batch_size, self.patch_size
+        n = len(all_patch_info)
+        if n % B or n <= B:
+            return None
+        xs = sorted({info[1][0] for info in all_patch_info})
+        if len(xs) < 2 or n % len(xs):
+            return None
+        per_col = n // len(xs)
+        elig = [c for c in range(1, len(xs)) if (c * per_col) % B == 0]
+        if not elig:
+            return None
+        k = max(2, min(int(n_bands), len(elig) + 1))
+        if bool(self.config.INFER_STREAM_TAPER) and k >= 3:
+            # the end bands about half an interior band (cumulative weights
+            # 1, 2, ..., 2, 1): the first slab upload and the last chunk's
+            # copy are the two ends nothing overlaps
+            fracs = [(2 * j - 1) / (2 * k - 2) for j in range(1, k)]
+        else:
+            fracs = [j / k for j in range(1, k)]
+        splits: list = []
+        for f in fracs:
+            cands = [c for c in elig if c not in splits]
+            if not cands:
+                break
+            target = f * len(xs)
+            splits.append(min(cands, key=lambda c: abs(c - target)))
+        bounds = [0] + sorted(splits) + [len(xs)]
+        bands = []
+        for i in range(len(bounds) - 1):
+            lo_col, hi_col = bounds[i], bounds[i + 1]
+            a = 0 if i == 0 else xs[lo_col]
+            e = image_size if hi_col == len(xs) else min(xs[hi_col - 1] + p, image_size)
+            bands.append(dict(i0=lo_col * per_col, i1=hi_col * per_col, a=a, e=e))
+        if bands[0]["e"] >= image_size:
+            return None
+        return bands
+
+    def _phase1_streamed(self, img, infos, bands):
+        """The streamed phase 1 over `bands` (_stream_plan): slab i holds
+        pixel columns [e_{i-1}, e_i). Band i's accumulator covers columns
+        [a, e); its first e_{i-1} - a columns start from band i - 1's, its
+        batches crop at x0 - a from the band's pixels (the slab segments
+        over [a, e), joined on the device), and the columns below band
+        i + 1's anchor are final after it. Returns (batches, mask chunks,
+        their host copies)."""
+        B, dev = self.batch_size, self.device
+        H, W = img.shape[:2]
+        k = len(bands)
+        slab_lo = [0] + [b["e"] for b in bands[:-1]]
+        serial = bool(self.config.INFER_STREAM_SERIAL_UPLOAD)
+
+        def put_slab(i):
+            return self.uploads.put(img[:, slab_lo[i]:bands[i]["e"]])
+
+        if serial:
+            # one upload in flight: slab 0 now, slab i + 1 under band i
+            slabs = [put_slab(0)] + [None] * (k - 1)
+            self.uploads.wait(slabs[0])
+        else:
+            slabs = [put_slab(i) for i in range(k)]
+        chunks, copies, batches = [], [], []
+        prev = None  # (fused, counter, a) of the previous band
+        for i, band in enumerate(bands):
+            a, e = band["a"], band["e"]
+            segs = []
+            for j, lo in enumerate(slab_lo):
+                hi = bands[j]["e"]
+                if hi <= a or lo >= e:
+                    continue
+                segs.append(self.uploads.use(slabs[j])[:, max(a - lo, 0):])
+            band_img = segs[0] if len(segs) == 1 else torch.cat(segs, dim=1)
+            fused = torch.zeros((H, e - a, 2), dtype=torch.int32, device=dev)
+            counter = torch.zeros((H, e - a), dtype=torch.int32, device=dev)
+            if prev is not None:
+                # the previous band's columns [a, e_{i-1}) carry over
+                p_fused, p_counter, p_a = prev
+                seed_w = p_fused.shape[1] - (a - p_a)
+                fused[:, :seed_w] = p_fused[:, a - p_a:]
+                counter[:, :seed_w] = p_counter[:, a - p_a:]
+            info = infos[band["i0"]:band["i1"]]
+            for r0 in range(0, len(info), B):
+                part = info[r0:r0 + B]
+                xy = [(x0 - a, y0) for _, (x0, y0), _ in part]
+                quant, feats = self._phase1_batch(self.model, band_img, xy)
+                _accumulate(fused, counter, quant, xy)
+                batches.append((feats, list(part)))
+            end = bands[i + 1]["a"] if i + 1 < k else W
+            chunk = _finalize(fused[:, :end - a], counter[:, :end - a])
+            chunks.append(chunk)
+            copies.append(_HostCopy(chunk))
+            prev = (fused, counter, a)
+            if serial and i + 1 < k:
+                slabs[i + 1] = put_slab(i + 1)
+                self.uploads.wait(slabs[i + 1])
+        return batches, chunks, copies
+
     # ---------- phase 2 ----------
 
     @torch.no_grad()
-    def _scores_q(self, feats, points, pairs, valid):
-        """TopoNet scores as int16 fixed point (1/32767), -32768 for NaN."""
-        s = self.model.infer_toponet(feats, points, pairs, valid).float()
+    def _scores_q(self, feats, points, tgt, valid_packed):
+        """TopoNet scores as int16 fixed point (1/32767), -32768 for NaN,
+        from the compact arguments: points [b, S, 2] (uint16 values as
+        int16 bytes), tgt [b, S, K] int16, valid_packed [b, S, ceil(K / 8)]
+        uint8 (np.packbits). The pairs' sources are the rows."""
+        b, S, K = tgt.shape
+        pts = _uint16(points).float()
+        src = torch.arange(S, device=tgt.device).view(1, S, 1).expand(b, S, K)
+        pairs = torch.stack([src, tgt.long()], dim=-1)
+        valid = _unpack_bits(valid_packed, K)
+        s = self.model.infer_toponet(feats, pts, pairs, valid).float()
         q = torch.round(s.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-        return torch.where(torch.isnan(s), torch.full_like(q, -(2 ** 15)), q)
+        return torch.where(torch.isnan(s), torch.full_like(q, NAN_Q), q)
 
+    @torch.no_grad()
+    def _phase2_agg(self, feats, points, tgt, valid_packed, edge_ids, acc):
+        """Score one batch and add (q, 1, q is NaN) of every slot into
+        acc [E_pad + 1, 3] int32 at its edge id (edge_ids [b, S, K], uint16
+        values as int16 bytes; invalid slots carry E_pad). Integer sums are
+        exact in any order."""
+        q = self._scores_q(feats, points, tgt, valid_packed)[..., 0].reshape(-1).to(torch.int32)
+        vals = torch.stack([q, torch.ones_like(q), (q == NAN_Q).to(torch.int32)], dim=-1)
+        acc.index_add_(0, _uint16(edge_ids).reshape(-1), vals)
+
+    def _put(self, *arrays):
+        """Compact phase-2 arguments on the engine's device: uint16 arrays
+        as int16 bytes, the others as they are."""
+        return tuple((_as_int16(a) if a.dtype == np.uint16 else torch.from_numpy(a))
+                     .to(self.device) for a in arrays)
+
+    def _build_args(self, info, graph_points) -> _Args | None:
+        """One batch's pairs and compact arguments (JAX: engine.py:1126-1155),
+        or None where no patch of the batch holds a point."""
+        cfg = self.config
+        max_nbr = int(cfg.MAX_NEIGHBOR_QUERIES)
+        # None: a slot of a DP round past its shard's patches, or banded
+        # padding: a degenerate box, no points
+        boxes = np.array([(0.0, 0.0, -1.0, -1.0) if e is None else (*e[1], *e[2])
+                          for e in info], np.float64)
+        per_patch = build_pairs_for_boxes(graph_points, boxes, max_nbr,
+                                          float(cfg.NEIGHBOR_RADIUS))
+        max_pts = max(pp[1].shape[0] for pp in per_patch)
+        if max_pts == 0:
+            return None
+        S = _bucket_size(max_pts, self.point_bucket)
+        if S >= 32768:
+            raise ValueError(f"point bucket {S} exceeds the int16 pair index range")
+        nb = len(info)
+        bpoints = np.zeros((nb, S, 2), np.uint16)
+        btgt = np.zeros((nb, S, max_nbr), np.int16)
+        bvalid = np.zeros((nb, S, max_nbr), bool)
+        for i, (_, pts, pairs, valid) in enumerate(per_patch):
+            n = pts.shape[0]
+            bpoints[i, :n] = pts
+            btgt[i, :n] = pairs[..., 1]
+            bvalid[i, :n] = valid
+        return _Args(per_patch, bpoints, btgt, np.packbits(bvalid, axis=-1), S, bvalid)
+
+    def _speculate_phase2(self, plan, batches, copies):
+        """INFER_P2_SPECULATIVE (JAX's _speculate_phase2): wait for the mask
+        chunks of bands 0..k-2, extract provisional vertices from them and
+        dispatch the scoring of each batch of those bands whose patches all
+        end `guard` px left of the last band's anchor. Greedy NMS is
+        global, so _finish uses an entry only where its pair arguments equal
+        the final ones byte for byte."""
+        cfg = self.config
+        B = self.batch_size
+        t0 = time.time()
+        frontier = plan[-1]["a"]
+        guard = int(cfg.INFER_P2_SPEC_GUARD or 0) or 2 * int(cfg.ROAD_NMS_RADIUS)
+        chunks_np = [c.numpy() for c in copies[:-1]]
+        prov = np.concatenate(chunks_np, axis=1)  # columns [0, frontier)
+        t_masks = time.time()
+        prov_points = extract_graph_points(np.ascontiguousarray(prov[..., 0]),
+                                           np.ascontiguousarray(prov[..., 1]), cfg)
+        t_extract = time.time()
+        entries = {}
+        stats = {"spec_points": int(prov_points.shape[0]),
+                 "spec_wait_s": round(t_masks - t0, 4),
+                 "spec_extract_s": round(t_extract - t_masks, 4)}
+        if prov_points.shape[0] == 0:
+            stats["spec_s"] = round(time.time() - t0, 4)
+            return {"entries": entries, "chunks_np": chunks_np, **stats}
+        n_spec = sum((b["i1"] - b["i0"]) // B for b in plan[:-1])
+        for bi in range(n_spec):
+            feats, info = batches[bi]
+            if any(e is not None and e[2][0] > frontier - guard for e in info):
+                continue
+            args = self._build_args(info, prov_points)
+            if args is None:
+                continue
+            q = self._scores_q(feats, *self._put(args.points, args.tgt, args.valid_packed))
+            entries[bi] = _SpecEntry(q, args.points, args.tgt, args.valid_packed, args.S)
+        stats["spec_dispatched"] = len(entries)
+        stats["spec_s"] = round(time.time() - t0, 4)
+        return {"entries": entries, "chunks_np": chunks_np, **stats}
+
+    def _fetch_masks(self, p1: dict) -> np.ndarray:
+        """The region's uint8 masks [H, W, 2] on the host: the chunks that
+        speculation already read, then the rest, each after its copy."""
+        done = p1["spec"]["chunks_np"] if p1.get("spec") else []
+        parts = done + [c.numpy() for c in p1["copies"][len(done):]]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+
+    @torch.no_grad()
     def _finish(self, p1: dict):
         """Host half: fetch masks, extract vertices, score and aggregate."""
         cfg = self.config
         t0 = p1["t0"]
-        masks = p1["masks"].cpu().numpy()  # sync point
+        masks = self._fetch_masks(p1)  # sync point
         kp_mask = np.ascontiguousarray(masks[..., 0])
         road_mask = np.ascontiguousarray(masks[..., 1])
         t1 = time.time()
         graph_points = extract_graph_points(kp_mask, road_mask, cfg)
         t2 = time.time()
         if graph_points.shape[0] == 0:
-            self.last_timings = {"phase1": t1 - t0, "extract": t2 - t1,
-                                 "phase2": 0.0, "total": time.time() - t0}
+            self.last_timings = {"phase1": t1 - t0, "extract": t2 - t1, "phase2": 0.0}
             return graph_points, np.zeros((0, 2), np.int64), kp_mask, road_mask
 
-        pending = self._dispatch_phase2(p1["batches"], graph_points)
-        scored = self._collect_scores(pending)
+        fine = fine_timings()
+        spec = p1.get("spec")
+        if spec is not None:
+            fine.update({k: v for k, v in spec.items() if k not in ("entries", "chunks_np")})
+            fine["spec_hits"] = 0
+            fine["spec_miss"] = 0
+        with on_device(self.device):
+            pending, pred_edges = self._dispatch_phase2(p1["batches"], graph_points, fine, spec)
+            scored = self._collect_scores(pending, fine)
         t3 = time.time()
-        pred_edges = self._aggregate_edges(scored, graph_points.shape[0])
-        self.last_timings = {"phase1": t1 - t0, "extract": t2 - t1,
-                             "phase2": t3 - t2, "total": time.time() - t0}
+        if pred_edges is None:  # the host aggregation
+            pred_edges = self._aggregate_edges(scored, graph_points.shape[0])
+        self.last_timings = {"phase1": t1 - t0, "extract": t2 - t1, "phase2": t3 - t2,
+                             "total": time.time() - t0,
+                             **{k: round(v, 4) for k, v in fine.items()}}
         return graph_points[:, ::-1], pred_edges, kp_mask, road_mask
 
-    def _dispatch_phase2(self, batches, graph_points):
+    def _dispatch_phase2(self, batches, graph_points, fine: dict | None = None, spec=None):
         """Build each phase-1 batch's pairs on the host and dispatch its
-        scoring, one batch after another; returns [(int16 scores on the
-        device, per-patch pairs)] for the batches with points, unfetched."""
+        scoring, one batch after another (a speculative entry whose
+        arguments match stands in for its dispatch); with
+        INFER_P2_PACK_ARGS or INFER_P2_DEVICE_AGG every batch is built
+        first. Adds the host seconds to `fine`'s p2_build / p2_dispatch (and
+        the speculation's hits and misses). Returns (pending: [(int16 scores
+        on the device, per-patch pairs)], unfetched; the device
+        aggregation's edges, or None where it did not run)."""
         cfg = self.config
-        max_nbr = int(cfg.MAX_NEIGHBOR_QUERIES)
-        radius = float(cfg.NEIGHBOR_RADIUS)
-        dev = self.device
-        pending = []
-        for feats, info in batches:
-            # None: a slot of a DP round past its shard's patches, no points
-            boxes = np.array([(0.0, 0.0, -1.0, -1.0) if e is None else (*e[1], *e[2])
-                              for e in info], np.float64)
-            per_patch = build_pairs_for_boxes(graph_points, boxes, max_nbr, radius)
-            max_pts = max(pp[1].shape[0] for pp in per_patch)
-            if max_pts == 0:
+        fine = fine_timings() if fine is None else fine
+        entries = (spec or {}).get("entries", {})
+        pack = bool(cfg.INFER_P2_PACK_ARGS) and self.n_shards == 1
+        agg = bool(cfg.INFER_P2_DEVICE_AGG) and self.n_shards == 1 and self.sp_shards < 1
+        self.last_agg = None
+        if agg and graph_points.shape[0] >= _AGG_MAX_VERTS:
+            print(f"[engine] INFER_P2_DEVICE_AGG: region has {graph_points.shape[0]} vertices "
+                  f">= {_AGG_MAX_VERTS}; falling back to host edge aggregation", flush=True)
+            self.last_agg = dict(vertices=int(graph_points.shape[0]), E=None, E_pad=None,
+                                 path="host")
+            agg = False
+        pending, built = [], []
+        for bi, (feats, info) in enumerate(batches):
+            t = time.time()
+            args = self._build_args(info, graph_points)
+            fine["p2_build"] += time.time() - t
+            if args is None:
                 continue
-            S = _bucket_size(max_pts, self.point_bucket)
-            nb = len(info)
-            bpoints = np.zeros((nb, S, 2), np.float32)
-            btgt = np.zeros((nb, S, max_nbr), np.int64)
-            bvalid = np.zeros((nb, S, max_nbr), bool)
-            for i, (_, pts, pairs, valid) in enumerate(per_patch):
-                n = pts.shape[0]
-                bpoints[i, :n] = pts
-                btgt[i, :n] = pairs[..., 1]
-                bvalid[i, :n] = valid
-            src = np.broadcast_to(np.arange(S)[None, :, None], btgt.shape)
-            bpairs = np.stack([src, btgt], axis=-1)
-            if isinstance(feats, list):  # DP: the round's shards, pooled on dev
-                feats = torch.cat([f.to(dev) for f in feats])
-            q = self._scores_q(feats, torch.from_numpy(bpoints).to(dev),
-                               torch.from_numpy(bpairs).to(dev),
-                               torch.from_numpy(bvalid).to(dev))
-            pending.append((q, per_patch))
+            if isinstance(feats, list):  # DP: the round's shards, pooled on the device
+                feats = torch.cat([f.to(self.device) for f in feats])
+            if pack or agg:
+                built.append((feats, args))
+                continue
+            entry = entries.get(bi)
+            if entry is not None:
+                # the speculative scores stand only for identical arguments
+                if (entry.S == args.S and np.array_equal(entry.points, args.points)
+                        and np.array_equal(entry.tgt, args.tgt)
+                        and np.array_equal(entry.valid_packed, args.valid_packed)):
+                    pending.append((entry.q, args.per_patch))
+                    fine["spec_hits"] += 1
+                    continue
+                fine["spec_miss"] += 1
+            t = time.time()
+            pending.append((self._scores_q(feats, *self._put(args.points, args.tgt,
+                                                              args.valid_packed)),
+                            args.per_patch))
+            fine["p2_dispatch"] += time.time() - t
+        agg_edges = self._device_agg(built, graph_points.shape[0], fine) if agg and built else None
+        if built and agg_edges is None:
+            pending += self._dispatch_packed(built, fine)
+        return pending, agg_edges
+
+    def _dispatch_packed(self, built, fine: dict) -> list:
+        """INFER_P2_PACK_ARGS (and the device aggregation's fall-back): one
+        upload per kind of argument for every built batch, padded to the
+        largest S, each batch's scoring on its slice."""
+        t = time.time()
+        first = built[0][1]
+        nb, S_max = len(built), max(args.S for _, args in built)
+        b, K = first.tgt.shape[0], first.tgt.shape[-1]
+        pk_pts = np.zeros((nb, b, S_max, 2), np.uint16)
+        pk_tgt = np.zeros((nb, b, S_max, K), np.int16)
+        pk_val = np.zeros((nb, b, S_max, first.valid_packed.shape[-1]), np.uint8)
+        for i, (_, args) in enumerate(built):
+            pk_pts[i, :, :args.S] = args.points
+            pk_tgt[i, :, :args.S] = args.tgt
+            pk_val[i, :, :args.S] = args.valid_packed
+        dev_pts, dev_tgt, dev_val = self._put(pk_pts, pk_tgt, pk_val)
+        pending = [(self._scores_q(feats, dev_pts[i, :, :args.S], dev_tgt[i, :, :args.S],
+                                   dev_val[i, :, :args.S]), args.per_patch)
+                   for i, (feats, args) in enumerate(built)]
+        fine["p2_dispatch"] += time.time() - t
         return pending
 
-    @staticmethod
-    def _collect_scores(pending):
-        """Fetch each pending batch's int16 scores, in order, and keep the
-        valid pairs': (source vertex, target vertex, score) arrays, one
-        triple per patch with a valid pair."""
+    def _device_agg(self, built, n_points: int, fine: dict):
+        """INFER_P2_DEVICE_AGG (JAX: engine.py:1187-1270): the unique
+        directed edges of every valid slot, keyed src << 16 | tgt (the
+        order of the host path's src * N + tgt), every slot's edge id in one
+        upload, each batch's scores added on the device, one fetch. Returns
+        the kept edges, or None where E_pad exceeds the uint16 ids."""
+        cfg = self.config
+        t = time.time()
+        keys_per, all_keys = [], []
+        for _, args in built:
+            b = args.tgt.shape[0]
+            gp = np.zeros((b, args.S), np.uint16)
+            for i, (pidx, pts, _, _) in enumerate(args.per_patch):
+                gp[i, :pts.shape[0]] = pidx
+            gtgt = gp[np.arange(b)[:, None, None], args.tgt.astype(np.int64)].astype(np.uint32)
+            keys = (gp[:, :, None].astype(np.uint32) << 16) | gtgt
+            keys_per.append(keys)
+            all_keys.append(keys[args.valid])
+        cat = np.concatenate(all_keys)
+        if cat.size == 0:
+            fine["p2_build"] += time.time() - t
+            self.last_agg = dict(vertices=n_points, E=0, E_pad=None, path="device")
+            return np.zeros((0, 2), dtype=np.int64)
+        uniq = np.unique(cat)
+        E = uniq.shape[0]
+        E_pad = _bucket_size(E, 1024)
+        self.last_agg = dict(vertices=n_points, E=int(E), E_pad=int(E_pad), path="device")
+        if E_pad > _AGG_MAX_EDGE_PAD:
+            print(f"[engine] INFER_P2_DEVICE_AGG: {E} unique edges exceed the uint16 edge-id "
+                  "transport; falling back to host edge aggregation", flush=True)
+            fine["p2_build"] += time.time() - t
+            self.last_agg["path"] = "host"
+            return None
+        nb, S_max = len(built), max(args.S for _, args in built)
+        b, K = built[0][1].tgt.shape[0], built[0][1].tgt.shape[-1]
+        eids = np.full((nb, b, S_max, K), E_pad, np.uint16)
+        for i, (_, args) in enumerate(built):
+            eid = np.searchsorted(uniq, keys_per[i]).astype(np.uint16)
+            eid[~args.valid] = E_pad
+            eids[i, :, :args.S] = eid
+        fine["p2_build"] += time.time() - t
+        t = time.time()
+        (dev_eids,) = self._put(eids)
+        acc = torch.zeros((E_pad + 1, 3), dtype=torch.int32, device=self.device)
+        for i, (feats, args) in enumerate(built):
+            self._phase2_agg(feats, *self._put(args.points, args.tgt, args.valid_packed),
+                             dev_eids[i, :, :args.S], acc)
+        fine["p2_dispatch"] += time.time() - t
+        t = time.time()
+        acc_np = acc.cpu().numpy()  # one [E_pad + 1, 3] int32 fetch
+        fine["p2_fetch"] += time.time() - t
+        sum_q = acc_np[:E, 0].astype(np.int64)
+        cnt = np.maximum(acc_np[:E, 1].astype(np.float64), 1.0)
+        nanc = acc_np[:E, 2].astype(np.int64)
+        # the host path's decode: a NaN's -32768 out of the sum, -100 in
+        sums = ((sum_q + 32768 * nanc).astype(np.float64) / 32767.0
+                - 100.0 * nanc.astype(np.float64))
+        kept = uniq[sums / cnt > cfg.TOPO_THRESHOLD].astype(np.int64)
+        if not kept.size:
+            return np.zeros((0, 2), dtype=np.int64)
+        return np.stack([kept >> 16, kept & 0xFFFF], axis=1)
+
+    def _collect_scores(self, pending, fine: dict | None = None):
+        """Fetch the pending int16 scores, one stacked copy per distinct
+        shape (INFER_P2_FETCH_WAVES: per wave of that shape's batches, in
+        dispatch order), each cut to its batches' real point count rounded
+        up to 32, and keep the valid pairs': (source vertex, target vertex,
+        score) arrays, one triple per patch with a valid pair. Adds the
+        fetch's seconds to `fine`'s p2_fetch."""
+        t = time.time()
+        by_shape: dict = {}
+        for bi, (q, _) in enumerate(pending):
+            by_shape.setdefault(tuple(q.shape), []).append(bi)
+        waves = max(1, int(self.config.INFER_P2_FETCH_WAVES or 1))
+        fetched = {}
+        for shape, idxs in by_shape.items():
+            if waves > 1 and len(idxs) >= 2 * waves:
+                parts = [[int(i) for i in s] for s in np.array_split(np.asarray(idxs), waves)
+                         if len(s)]
+            else:
+                parts = [idxs]
+            for part in parts:
+                maxn = max((pp[1].shape[0] for bi in part for pp in pending[bi][1]), default=0)
+                cut = min(shape[1], _round_up(max(maxn, 1), 32))
+                stacked = torch.stack([pending[bi][0] for bi in part])[:, :, :cut]
+                stacked = stacked.contiguous().cpu().numpy()
+                for j, bi in enumerate(part):
+                    fetched[bi] = stacked[j]
+        if fine is not None:
+            fine["p2_fetch"] += time.time() - t
         scored = []
-        for q_dev, per_patch in pending:
-            q = q_dev[..., 0].cpu().numpy().astype(np.int64)
+        for bi, (_, per_patch) in enumerate(pending):
+            q = fetched[bi][..., 0].astype(np.int64)
             for i, (pidx, pts, pairs, valid) in enumerate(per_patch):
                 n = pts.shape[0]
                 if n == 0 or not valid.any():
@@ -366,7 +935,7 @@ class TiledInferenceEngine:
         nanc = np.zeros(uniq.shape[0], np.int64)
         counts = np.zeros(uniq.shape[0], np.int64)
         np.add.at(sum_q, inv, sc)
-        np.add.at(nanc, inv, (sc == -(2 ** 15)).astype(np.int64))
+        np.add.at(nanc, inv, (sc == NAN_Q).astype(np.int64))
         np.add.at(counts, inv, 1)
         # exact int64 sums; a NaN score counts as the reference's -100
         sums = ((sum_q + 32768 * nanc).astype(np.float64) / 32767.0

@@ -11,12 +11,13 @@ thresholds:
               points the split's final points must equal);
   phase 2     `reps` times, from a fresh phase 1 and extraction: the host's
               pair building and the dispatch of every batch
-              (`engine._dispatch_phase2`), the wait for the card's queue to
-              drain (a synchronise), the copy of the int16 score stacks to
-              the host with the queue empty (MB and batches), then the
-              engine's own fetch-and-select (`_collect_scores`, which copies
-              them again) and its int64 aggregation (`_aggregate_edges`),
-              whose edges must equal the run's.
+              (`engine._dispatch_phase2`, its p2_build / p2_dispatch split
+              beside), the wait for the card's queue to drain (a
+              synchronise), the copy of the int16 score stacks to the host
+              with the queue empty (MB and batches), then the engine's own
+              grouped fetch-and-select (`_collect_scores`, which copies them
+              again; its p2_fetch beside) and its int64 aggregation
+              (`_aggregate_edges`), whose edges must equal the run's.
 
 Host clocks around each step (a synchronise where the card works). The JAX
 tool's link fencing has no counterpart on the card and is left out.
@@ -64,27 +65,29 @@ def extraction_split(kp_mask, road_mask, cfg):
 def phase2_split(engine, img) -> dict:
     """One region's phase 2 through the engine's methods, step by step."""
     from sam_road_tpu_torch.graph.extraction import extract_graph_points
+    from sam_road_tpu_torch.inference.engine import fine_timings
 
     dev = engine.device
     p1 = engine._run_phase1(img)
-    masks = p1["masks"].cpu().numpy()
+    masks = engine._fetch_masks(p1)
     graph_points = extract_graph_points(np.ascontiguousarray(masks[..., 0]),
                                         np.ascontiguousarray(masks[..., 1]), engine.config)
+    fine = fine_timings()
     t0 = time.perf_counter()
-    pending = engine._dispatch_phase2(p1["batches"], graph_points)
+    pending, _ = engine._dispatch_phase2(p1["batches"], graph_points, fine)
     t1 = time.perf_counter()
     bench.sync(dev)
     t2 = time.perf_counter()
     stacks = [q[..., 0].cpu() for q, _ in pending]
     t3 = time.perf_counter()
-    scored = engine._collect_scores(pending)
+    scored = engine._collect_scores(pending, fine)
     t4 = time.perf_counter()
     edges = engine._aggregate_edges(scored, graph_points.shape[0])
     t5 = time.perf_counter()
     return dict(build_dispatch_s=t1 - t0, queue_drain_s=t2 - t1, pure_fetch_s=t3 - t2,
                 fetch_mb=sum(s.numel() * s.element_size() for s in stacks) / 1e6,
                 batches=len(pending), collect_s=t4 - t3, aggregate_s=t5 - t4,
-                edges=int(edges.shape[0]))
+                edges=int(edges.shape[0]), **fine)
 
 
 def main(device: str = "cuda", *, reps: int = 3, model=None, overrides: dict | None = None,

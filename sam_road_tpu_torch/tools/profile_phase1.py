@@ -8,11 +8,13 @@ geometry), through the engine's own methods:
            (models/vit.py, K5) with fused=0 (`SAMRoad.encode`);
   decoder  + the map decoder, sigmoid and int32 quantisation
            (`engine._phase1_batch`);
-  fusion   the whole `engine._run_phase1`: its region upload, every batch,
-           `_accumulate` and `_finalize` to the uint8 masks;
+  fusion   the whole `engine._run_phase1` on the engine's path (the
+           streamed one at the bench config: column slabs, every band's
+           batches, `_accumulate` and `_finalize` to the uint8 mask chunks,
+           their copies to the host started);
 and the host link's two copies, timed alone: `upload_s` (the 12 MiB region
 from pageable memory to the card) and `mask_download_s` (the region's
-uint8 keypoint and road masks to the host).
+uint8 keypoint and road mask chunks to the host).
 
 Timing: the host clock around a stage and a synchronise; one warm call of
 each stage first, then `rounds` rounds with the stages in turns; the least
@@ -39,7 +41,7 @@ STAGES = ("crop", "encoder", "decoder", "fusion")
 def make_stages(engine, img, img_dev) -> dict:
     """name -> fn() over every batch of the region img (img_dev: its copy
     on the engine's device); each returns its outputs, one a batch (fusion:
-    the uint8 masks)."""
+    the uint8 mask chunks, left to right)."""
     model = engine.model
     batches = bench.batch_origins(engine, img.shape[0])
 
@@ -94,7 +96,7 @@ def main(device: str = "cuda", *, fused: int = 1, rounds: int = 4, model=None,
             for name, fn in stages.items():
                 times[name].append(timed(fn, dev))
             upload.append(timed(lambda: img_t.to(dev), dev))
-            download.append(timed(lambda: masks.cpu(), dev))
+            download.append(timed(lambda: [c.cpu() for c in masks], dev))
     origins = bench.batch_origins(engine, img.shape[0])
     results = {"device": bench.device_name(dev), "fused": int(bool(fused)),
                "batches": len(origins), "patches": sum(map(len, origins))}
@@ -103,7 +105,7 @@ def main(device: str = "cuda", *, fused: int = 1, rounds: int = 4, model=None,
         results[name + "_s_rounds"] = ts
     results.update(upload_s=min(upload), upload_s_rounds=upload,
                    mask_download_s=min(download), mask_download_s_rounds=download,
-                   mask_mib=masks.numel() * masks.element_size() / 2 ** 20)
+                   mask_mib=sum(c.numel() * c.element_size() for c in masks) / 2 ** 20)
     print(json.dumps(results), flush=True)
     return results
 

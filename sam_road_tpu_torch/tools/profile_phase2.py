@@ -9,8 +9,10 @@ targets and a valid mask at 0.6, all from np.random.default_rng(0). Three
 nested stages:
   sampler     ops/sampling.py's bilinear sampler alone;
   toponet     `model.infer_toponet`: the sampler, TopoNet, fp32 scores;
-  full_int16  `engine._scores_q`: + the int16 quantisation the engine
-              fetches.
+  full_int16  `engine._scores_q` on the same batch in the engine's compact
+              arguments (uint16 points, int16 targets, packed validity;
+              `compact_inputs`): + their decode and the int16
+              quantisation the engine fetches.
 
 Timing: `utils/profiling.py::ms_per_call` (CUDA events around `iters`
 calls; the host clock on the CPU), one warm call of each stage first, then
@@ -51,14 +53,25 @@ def make_inputs(engine, S: int, seed: int = 0):
                             for a in (points, pairs, valid))
 
 
+def compact_inputs(engine, inputs):
+    """(feats, points, pairs, valid) as the engine ships them to
+    `_scores_q`: points as uint16 (int16 bytes), the pairs' targets as
+    int16, the validity np.packbits-packed."""
+    feats, points, pairs, valid = inputs
+    return (feats,) + engine._put(points.cpu().numpy().astype(np.uint16),
+                                  pairs[..., 1].cpu().numpy().astype(np.int16),
+                                  np.packbits(valid.cpu().numpy(), axis=-1))
+
+
 def make_stages(engine, inputs) -> dict:
     from sam_road_tpu_torch.ops.sampling import bilinear_sample_points
 
     feats, points = inputs[:2]
+    compact = compact_inputs(engine, inputs)
     return dict(zip(STAGES, (
         lambda: bilinear_sample_points(feats, points, engine.patch_size),
         lambda: engine.model.infer_toponet(*inputs),
-        lambda: engine._scores_q(*inputs))))
+        lambda: engine._scores_q(*compact))))
 
 
 def main(S: int = 128, device: str = "cuda", *, iters: int = 20, rounds: int = 5, model=None,

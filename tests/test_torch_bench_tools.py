@@ -115,7 +115,8 @@ def test_bench_main_prints_one_json_line_with_its_keys(model, img, capsys):
     d = result["detail"]
     assert result["value"] == min(d["all_runs_s"]) and len(d["per_run"]) == 2
     assert d["median_s"] >= result["value"]
-    assert set(d["timings"]) == {"phase1", "extract", "phase2", "total"}
+    assert set(d["timings"]) == {"phase1", "extract", "phase2", "total", "p2_build",
+                                 "p2_dispatch", "p2_fetch"}
     assert d["timings"] in d["per_run"]
     assert d["nodes"] > 0 and d["edges"] > 0 and d["patches"] == 16 and d["batch"] == 8
     assert d["tiles_per_sec"] == pytest.approx(16 / d["timings"]["phase1"])
@@ -165,8 +166,8 @@ def test_profile_phase1_stages_are_the_engines_phase1(model, img):
     counter = torch.zeros((192, 192), dtype=torch.int32)
     for xy, q in zip(origins, quants):
         _accumulate(fused, counter, q, xy)
-    assert torch.equal(_finalize(fused, counter), want["masks"])
-    assert torch.equal(masks, want["masks"])
+    assert torch.equal(_finalize(fused, counter), torch.cat(want["masks"], dim=1))
+    assert all(torch.equal(c, w) for c, w in zip(masks, want["masks"], strict=True))
     for f, (wf, _) in zip(feats, want["batches"]):
         assert torch.equal(f, wf)
 
@@ -206,7 +207,7 @@ def test_profile_phase2_stages_are_the_engines_scoring(model):
     stages = profile_phase2.make_stages(engine, inputs)
     with torch.no_grad():
         sampled, scores, q = (stages[name]() for name in profile_phase2.STAGES)
-        want = engine._scores_q(*inputs)
+        want = engine._scores_q(*profile_phase2.compact_inputs(engine, inputs))
     assert q.dtype == torch.int16 and torch.equal(q, want)
     assert torch.equal(q, torch.round(scores.float().clamp(-1, 1) * 32767).to(torch.int16))
     np.testing.assert_allclose(
@@ -227,6 +228,43 @@ def test_abtest_engine_a_equals_b_gives_identical_graphs(model, img):
     assert len(res["a_s"]) == len(res["b_s"]) == len(res["paired_delta_a_minus_b"]) == 2
     assert res["paired_delta_a_minus_b"] == [a - b for a, b in zip(res["a_s"], res["b_s"])]
     _times_ok(res)
+
+
+@pytest.mark.parametrize("b", [{"INFER_P2_SPECULATIVE": True}, {"INFER_P2_DEVICE_AGG": True}],
+                         ids=["speculative", "device_agg"])
+def test_abtest_engine_reports_the_pipeline_modes_without_warm_runs(model, img, b):
+    """B in a pipeline mode against the whole-region path, at given
+    thresholds and with no warm runs: the last round's outputs are equal,
+    and B's speculation counters or device aggregation are reported."""
+    engine = bench.make_engine("cpu", ENGINE, model)
+    thresholds = bench.calibrate(engine, img)
+    res = abtest_engine.main(b, 2, {"INFER_STREAM_PHASE1": False}, "cpu", model=model,
+                             base=ENGINE, region=img, thresholds=thresholds, warm=False)
+    assert res["same_outputs"] and res["a_graph"] == res["b_graph"] and res["a_graph"][1] > 0
+    assert len(res["a_s"]) == len(res["b_s"]) == 2
+    if "INFER_P2_SPECULATIVE" in b:
+        assert {"spec_dispatched", "spec_hits", "spec_miss"} <= set(res["b_spec_last"])
+        assert "b_agg_last" not in res
+    else:
+        assert res["b_agg_last"]["path"] == "device" and "b_spec_last" not in res
+
+
+def test_abtest_engine_arms_pair_every_arm_with_one_a_run(model, img):
+    """Several arms against one A: each round runs every arm, then A once,
+    so every arm's paired differences take the same A times."""
+    engine = bench.make_engine("cpu", ENGINE, model)
+    thresholds = bench.calibrate(engine, img)
+    over = {"stream": {}, "waves": {"INFER_P2_FETCH_WAVES": 2}}
+    res = abtest_engine.arms(over, 2, {"INFER_STREAM_PHASE1": False}, "cpu", model=model,
+                             base=ENGINE, region=img, thresholds=thresholds, warm=False)
+    assert set(res) == set(over)
+    a_s = res["stream"]["a_s"]
+    assert len(a_s) == 2
+    for name, r in res.items():
+        assert r["overrides"] == over[name] and r["a_s"] == a_s and len(r["b_s"]) == 2
+        assert r["paired_delta_a_minus_b"] == [a - b for a, b in zip(a_s, r["b_s"])]
+        assert r["same_outputs"] and r["a_graph"] == r["b_graph"] and r["a_graph"][1] > 0
+        _times_ok(r)
 
 
 def test_abtest_engine_builds_b_from_its_own_config(model, img):

@@ -170,7 +170,7 @@ def test_engine_matches_jax_engine(engines):
     s0, s1 = _edge_set(n0, e0), _edge_set(n1, e1)
     assert len(s0) > 50
     assert len(s0 & s1) / len(s0 | s1) >= 0.95
-    assert set(teng.last_timings) == {"phase1", "extract", "phase2", "total"}
+    assert set(teng.last_timings) == set(jeng.last_timings)
 
 
 def test_engine_infer_tiles_matches_one_by_one(engines):
