@@ -59,6 +59,14 @@ report against the torch oracle), then training steps of
 configs/toponet_vith_256.yaml (K5 and K6 at head_dim 80),
 configs/toponet_vitl_256.yaml and configs/toponet_vitb_1024.yaml (with
 and without REMAT_ENCODER), which never trained on the card before.
+Phase 24 runs the synthetic example end to end at its own settings
+(sam_road_tpu_torch/examples/end_to_end_synthetic.py: vit_t trained from
+random weights for 4 x 150 steps through K5's head_dim-32 instance,
+calibrated, inferred and scored: the loss must fall and APLS / TOPO F1
+clear their floors); phase 25 runs the streamed-schedule probes at the
+bench geometry (every instrumented run bit-equal to the engine's, the
+bands' masks to the whole path's); phase 26 holds the fp32 training step
+at ViT-B 512 px to the JAX package's committed losses and gradient norm.
 Every kernel's time sits beside its bound (bytes or operations at the
 card's peak rates) and, where one PyTorch call computes the same function,
 that call's time.
@@ -144,7 +152,7 @@ KERNEL_META = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
 FLAGSHIP = "configs/toponet_vitb_512_cityscale.yaml"
 CLI = dict(IMAGE_SIZE=1024, FUSED_ENCODER_TRAIN=True, TRAIN_EPOCHS=1, DATA_WORKER_NUM=4,
            VAL_VIZ_COUNT=4)
-CLI_STEPS = 8
+CLI_STEPS = 4  # the loader's steady rate is phase 22's feed tool's to measure
 REMAT_STEPS = 2  # the REMAT_ENCODER runs only read peak memory
 GRAD_COS_MIN = 0.99
 K6_META = {  # K6 wrapper -> (the kernel its forward launches, its CUDA source, the JAX custom_vjp)
@@ -276,8 +284,9 @@ T13_MORE = ((12, 196), (64, 256))
 SPACENET_CONFIG = "configs/toponet_vitb_256_spacenet.yaml"
 SPACENET_SPLIT = {"train": 6, "validation": 2, "test": 4}
 # enough steps that the loader's producer threads still run after its
-# buffer (4 in its queue, one in each of 4 workers' hands) is spent
-SPACENET_STEPS = 16
+# buffer (4 in its queue, one in each of 4 workers' hands) is spent: 3
+# steps at its steady rate
+SPACENET_STEPS = 12
 SPACENET_PER_FORWARD = {"fused_attention": 12}
 SPACENET_INFER_PER_BATCH = {"ln_dense": 12, "window_attention_rows_grid": 8,
                             "attention_relpos_rows": 4, "proj_ln_mlp_residual": 12}
@@ -290,7 +299,7 @@ DP_N = 4
 SP_CONFIG = "configs/toponet_vitb_1024.yaml"
 SP_N = 4
 SP_ENCODER_CHUNK = 2  # images a call of the fp32 eager reference encoder
-DDP_STEPS = 4
+DDP_STEPS = 2
 DDP_LOSS_RTOL, DDP_GRAD_RTOL = 2e-3, 1e-2
 # SP against one device: tests/test_multichip_inference.py's 1 level is fp32's; here two
 # bf16 encoders (plain-torch attention against K1-K4, features at cosine 0.9999) feed the
@@ -334,10 +343,11 @@ RELPOS_LOOP = dict(iters=20, reps=3)
 # phase 22: the training measurement tools at full width, their steps,
 # rounds and batches cut to fit the run; then the training configurations
 # that never ran on the card, at their own geometry (3 steps or more each)
-# 3 timed fed steps a worker count: a smoke check, since at 4-8 workers the
-# batches are made before the timed steps (the steady rate takes the tool's 16)
-FEED_RUN = dict(fed_batches=4, device_steps=5)
-TRAIN_SWEEP_STEPS = 3
+# 2 timed fed steps a worker count: a smoke check, since at
+# 4-8 workers the batches are made before the timed steps (the steady rate
+# takes the tool's 16)
+FEED_RUN = dict(fed_batches=3, device_steps=5)
+TRAIN_SWEEP_STEPS = 2
 FUSED_AB = dict(steps=4, rounds=2)
 VITH_CONFIG_AB = dict(steps=2, rounds=1)  # with the warm-up, 3 steps an arm
 VITL_CONFIG = "configs/toponet_vitl_256.yaml"
@@ -779,10 +789,13 @@ def fmt_times(row: dict, plain: str = "bf16") -> str:
 # tokens, D 92 padded to 96), its global grid (D 128), the 1024 px config's
 # global grid (2 images, 4096 tokens, D 192), the 256 px configs' global grid
 # (ViT-B and vit_l, D 96), and vit_h's windows (16 images x 4, D 108 padded
-# to 112) and 256 px global grid (D 112) with the eager encoder
+# to 112) and 256 px global grid (D 112) with the eager encoder, and
+# vit_t's windows at the synthetic example's batch (16 images of 80 px: one
+# 14 x 14 window each, head_dim 32, D 60 padded to 64)
 FLASH_CASES = (("window 14x14", 16 * 9, 14, 12, 64), ("global 32x32", 16, 32, 12, 64),
                ("global 64x64", 2, 64, 12, 64), ("global 16x16", 16, 16, 12, 64),
-               ("vit_h window 14x14", 16 * 4, 14, 16, 80), ("vit_h global 16x16", 16, 16, 16, 80))
+               ("vit_h window 14x14", 16 * 4, 14, 16, 80), ("vit_h global 16x16", 16, 16, 16, 80),
+               ("vit_t window 14x14", 16, 14, 2, 32))
 
 
 def flash_cases(dev: str = "cuda", cases=FLASH_CASES, dtype=None):
@@ -1420,7 +1433,7 @@ def run_training_cli(seed: int, work: str, dev: str = "cuda"):
     if not (peaks["fused_remat"] < fused_peak and peaks["eager_remat"] < eager_peak):
         raise SystemExit("REMAT_ENCODER did not lower peak memory")
 
-    time_loader(loader_cfg, data_root, 4, 4)
+    time_loader(loader_cfg, data_root, 4, 2)
     time_loader(loader_cfg, data_root, 1, 2)
     return launches
 
@@ -1736,9 +1749,11 @@ def read_scores(run: str, tiles) -> dict:
 
 def run_evaluate_cli(work: str) -> dict:
     """Phase 16: the evaluation CLI (`python -m sam_road_tpu_torch.cli.evaluate`,
-    native APLS and TOPO) over phase 10's cli.infer graphs (save/default)
-    and two run dirs of its own, against a street-grid ground truth written
-    for each tile (EVAL_GRIDS):
+    native APLS and TOPO) over phase 10's cli.infer graphs (save/default) on
+    the coarse grid's tile (native APLS takes about 50 s on the random
+    weights' graph over the arterial grid, the same path) and two run dirs
+    of its own on both tiles, against a street-grid ground truth written for
+    each tile (EVAL_GRIDS):
     - truth: the ground truth as the graph scores APLS > EVAL_APLS_MIN and
       TOPO P, R and F1 > EVAL_TOPO_MIN on every tile;
     - degraded: the ground truth less EVAL_DROPS central edges scores lower
@@ -1770,13 +1785,14 @@ def run_evaluate_cli(work: str) -> dict:
         for tile, adj in graphs.items():
             with open(os.path.join(runs[name], "graph", f"{tile}.p"), "wb") as f:
                 pickle.dump(adj, f)
+    scored = {"infer": tiles[-1:], "truth": tiles, "degraded": tiles}
     t = time.time()
-    out = evaluate_cli([runs["infer"], runs["truth"], runs["degraded"]], data, tiles)
+    per_tile = tile_seconds(evaluate_cli([runs["infer"]], data, scored["infer"]))
+    per_tile.update(tile_seconds(evaluate_cli([runs["truth"], runs["degraded"]], data, tiles)))
     cli_s = time.time() - t
-    per_tile = tile_seconds(out)
     seconds = {f"{name} {metric} native": per_tile.get((runs[name], metric))
-               for name in ("infer", "truth", "degraded") for metric in ("APLS", "TOPO")}
-    scores = {name: read_scores(runs[name], tiles) for name in ("infer", "truth", "degraded")}
+               for name in scored for metric in ("APLS", "TOPO")}
+    scores = {name: read_scores(runs[name], scored[name]) for name in scored}
     for name, by_tile in scores.items():
         for tile, s in by_tile.items():
             print(f"cli.evaluate {name} tile {tile}: APLS {s['apls']} TOPO P {s['p']} "
@@ -1814,8 +1830,8 @@ def run_evaluate_cli(work: str) -> dict:
     print(f"cli.evaluate seconds per tile (the runner's workers, two tiles at once): "
           f"{json.dumps(seconds)}; the CLI over three run dirs {cli_s:.1f} s, --no_native "
           f"{python_cli_s:.1f} s; phase {time.time() - t0:.1f} s | {gpu_line()}", flush=True)
-    want = {str(t) for t in tiles}
-    if any(v is None or set(v) != want for k, v in seconds.items() if "native" in k):
+    if any(v is None or set(v) != {str(t) for t in scored[k.split()[0]]}
+           for k, v in seconds.items() if "native" in k):
         bad.append(f"a per-tile line missing from the CLI's output: {seconds}")
     if bad:
         raise SystemExit("cli.evaluate: " + "; ".join(bad))
@@ -3986,7 +4002,7 @@ def run_multi_cli(work: str, dev: str = "cuda"):
     out = os.path.join(work, "ddp_train")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={ranks}", "-m", "sam_road_tpu_torch.cli.train", "--config",
-           os.path.join(work, "eager.yaml"), "--dev_run", "--steps_per_epoch", "4",
+           os.path.join(work, "eager.yaml"), "--dev_run", "--steps_per_epoch", "2",
            "--data_root", os.path.join(work, "data"), "--output_dir", out, "--device", dev]
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     t = time.time()
@@ -3998,6 +4014,133 @@ def run_multi_cli(work: str, dev: str = "cuda"):
     if proc.returncode or not os.path.exists(os.path.join(out, "ckpt_epoch_0.pt")):
         print(proc.stderr[-4000:], flush=True)
         raise SystemExit("cli.train under torch.distributed.run failed")
+
+
+E2E_APLS_MIN = 0.80  # the example's floors over the fixture's test tile, set below the
+E2E_TOPO_F1_MIN = 0.90  # JAX example's record (APLS 0.922-0.971, TOPO F1 0.971-0.994)
+E2E_INSTANCE = (64, 32)  # vit_t's windows in K5: D 32 + 14 + 14 = 60 -> 64, dv 32
+PROBE_ROUNDS = 2
+
+
+def run_e2e_example(dev: str = "cuda", epochs: int = 4, steps_per_epoch: int = 150) -> dict:
+    """Phase 24: sam_road_tpu_torch/examples/end_to_end_synthetic.py at its
+    own settings (vit_t, 80 px patches, batch 16, bf16, 4 epochs of 150
+    steps; cli.train, cli.test, cli.infer, cli.evaluate) in a temporary
+    directory. The last epoch's mean loss must be below the first's, APLS
+    and TOPO F1 over the fixture's test tile at least E2E_APLS_MIN and
+    E2E_TOPO_F1_MIN, and K5 must run during training, every call at
+    E2E_INSTANCE (where the eager encoder's windowed block takes it).
+    The instances are those that ops/attention.py::folded_instance, the
+    Python table, picks at each K5 call; the C entries report none. Their
+    dispatch chains apply the same rule, and only (64, 32) takes dv 32, so
+    a call at dv 32 that returned success launched that instance.
+    Returns the example's report with K5's instances by stage."""
+    from collections import Counter
+
+    from sam_road_tpu_torch.examples import end_to_end_synthetic
+    from sam_road_tpu_torch.ops import _build, attention
+
+    picked = Counter()
+    instance = attention.folded_instance
+
+    def counted(D, dv):
+        out = instance(D, dv)
+        picked[out] += 1
+        return out
+
+    work = tempfile.mkdtemp(prefix="samroad_e2e_")
+    _build.reset_launches()
+    attention.folded_instance = counted
+    try:
+        report = end_to_end_synthetic.main(work, epochs, steps_per_epoch, dev)
+    finally:
+        attention.folded_instance = instance
+        shutil.rmtree(work, ignore_errors=True)
+    art = report["artifact"]
+    apls = float(art["apls"]["final_APLS"])
+    f1 = float(np.mean(art["topo"]["f1"]))
+    losses = report["epoch_loss"]
+    k5 = report["launches"]["train"].get("fused_attention", 0)
+    print(f"example: mean loss by epoch {losses}, step {report['step_seconds']:.4f} s "
+          f"(median; the loader's wait {report['wait_seconds']:.4f} s of it), stages "
+          f"{report['seconds']}, APLS {apls:.4f}, TOPO F1 {f1:.4f}, "
+          f"launches {report['launches']}, K5 instances {dict(picked)} | {gpu_line()}",
+          flush=True)
+    if not (len(losses) == epochs and losses[-1] < losses[0]):
+        raise SystemExit(f"the example's training loss did not fall: {losses}")
+    if not (apls >= E2E_APLS_MIN and f1 >= E2E_TOPO_F1_MIN):
+        raise SystemExit(f"the example scored APLS {apls} / TOPO F1 {f1}, below its floors "
+                         f"{E2E_APLS_MIN} / {E2E_TOPO_F1_MIN}")
+    if k5 < epochs * steps_per_epoch or set(picked) != {E2E_INSTANCE}:
+        raise SystemExit(f"K5 did not carry the example's training at {E2E_INSTANCE}: "
+                         f"{k5} launches, instances {dict(picked)}")
+    report["k5_instances"] = {str(k): v for k, v in picked.items()}
+    return report
+
+
+def nondecreasing(values) -> bool:
+    return all(a <= b for a, b in zip(values, values[1:]))
+
+
+def run_stream_probes(dev: str = "cuda", rounds: int = PROBE_ROUNDS, **small) -> dict:
+    """Phase 25: tools/probe_stream_sched.py and probe_band_overhead.py at
+    the bench geometry, `rounds` rounds each (`small`: model, overrides,
+    region, for a rehearsal). Every instrumented run bit-equal to its plain
+    run, every field present, band_disp, chunk_ready and fetch_done
+    non-decreasing; the bands' masks bit-equal to the whole path's."""
+    from sam_road_tpu_torch.tools import probe_band_overhead, probe_stream_sched
+
+    from sam_road_tpu_torch.ops import _build
+
+    fields = ("slab_disp", "slab_ready", "band_disp", "chunk_ready", "fetch_done",
+              "seg_slice_s", "slab_wait_s", "p1_wall", "engine_timings", "total")
+    _build.reset_launches()
+    t = time.time()
+    sched = probe_stream_sched.main(dev, rounds=rounds, **small)
+    print(f"probe_stream_sched took {time.time() - t:.1f} s", flush=True)
+    for row in sched:
+        rec = row["instr"]
+        if not row["same_outputs"] or set(rec) != set(fields):
+            raise SystemExit(f"probe_stream_sched round {row['round']}: outputs equal "
+                             f"{row['same_outputs']}, fields {sorted(rec)}")
+        k = len(row["bands"])
+        if any(len(rec[key]) != k for key in fields[:7]) or not all(
+                nondecreasing(rec[key]) for key in ("band_disp", "chunk_ready", "fetch_done")):
+            raise SystemExit(f"probe_stream_sched round {row['round']}: a timeline is "
+                             f"short or out of order: {rec}")
+    t = time.time()
+    overhead = probe_band_overhead.main(dev, rounds=rounds, **small)
+    print(f"probe_band_overhead took {time.time() - t:.1f} s | {gpu_line()}", flush=True)
+    if not all(row["masks_equal"] for row in overhead):
+        raise SystemExit("the bands' masks differ from the whole path's")
+    launches = dict(_build.launches)
+    print(f"the probes' launches {launches}", flush=True)
+    if dev == "cuda" and not launches:
+        raise SystemExit("the probes launched no kernel")
+    return {"stream_sched": sched, "band_overhead": overhead, "launches": launches}
+
+
+def check_full_width_loss(dev: str = "cuda") -> dict:
+    """Phase 26: tools/full_width_loss.py: the fp32 training step's losses
+    and gradient norm at ViT-B 512 px on the JAX package's committed
+    numbers, within its TOLERANCE (1e-5 relative), the encoder through K5's
+    fp32 kernel (12 launches: one a block), TF32 off. Then the control: the
+    same step with TF32 on for cuBLAS and cuDNN must miss TOLERANCE, or the
+    check could not see such a leak."""
+    from sam_road_tpu_torch.tools import full_width_loss
+
+    res = full_width_loss.main(dev)
+    k5 = res["launches"].get("fused_attention_f32", 0)
+    control = full_width_loss.main(dev, tf32=True)
+    print(f"full-width loss: rel_err {res['rel_err']} (tol {res['tolerance']}), "
+          f"fused_attention_f32 launches {k5}, {res['seconds']:.2f} s; with TF32 on "
+          f"(the control) rel_err {control['rel_err']} | {gpu_line()}", flush=True)
+    if not res["ok"] or (dev == "cuda" and k5 != 12):
+        raise SystemExit(f"the full-width fp32 step misses JAX's numbers: {res}")
+    if dev == "cuda" and control["ok"]:
+        raise SystemExit(f"the full-width check does not see TF32 in cuBLAS: {control}")
+    res["tf32_control_rel_err"] = control["rel_err"]
+    return res
 
 
 def main():
@@ -4021,15 +4164,23 @@ def main():
     from sam_road_tpu_torch.ops import _build
     from sam_road_tpu_torch.utils.viz import _lib as draw_lib
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    def build_host():  # the host's compilers run beside nvcc's
+        t = time.time()
+        nms_lib(), pairs_lib(), load_topo_native(), ensure_apls_binary(), draw_lib()
+        return time.time() - t
+
     t = time.time()
-    lib = _build.kernels()
-    print(f"built CUDA kernels in {time.time() - t:.1f} s", flush=True)
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(build_host)
+        lib = _build.kernels()
+        print(f"built CUDA kernels in {time.time() - t:.1f} s", flush=True)
+        print(f"built host native libs, the rasteriser and the APLS scorer in "
+              f"{host.result():.1f} s, beside the CUDA build ({time.time() - t:.1f} s both)",
+              flush=True)
     print_ptxas(lib._name + ".log", ("gemm_kernel", "ln_stats_kernel", "relpos_attention_kernel",
                                       "folded_attention_f32_kernel"))
-    t = time.time()
-    nms_lib(), pairs_lib(), load_topo_native(), ensure_apls_binary(), draw_lib()
-    print(f"built host native libs, the rasteriser and the APLS scorer in "
-          f"{time.time() - t:.1f} s", flush=True)
 
     phase("3 kernels vs plain at the bench shapes (B=32)")
     results = check_kernels(32)
@@ -4173,6 +4324,30 @@ def main():
         "fused_attention_f32"]
     print(f"phase 22 took {time.time() - t:.1f} s", flush=True)
 
+    phase("24 the synthetic example end to end (sam_road_tpu_torch/examples/"
+          "end_to_end_synthetic.py): vit_t trained 4 x 150 steps, calibrated, inferred, scored")
+    t = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e = run_e2e_example()
+    print(f"phase 24 took {time.time() - t:.1f} s", flush=True)
+
+    phase(f"25 the streamed-schedule probes at the bench geometry, {PROBE_ROUNDS} rounds each")
+    t = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    probes = run_stream_probes()
+    print(f"phase 25 took {time.time() - t:.1f} s", flush=True)
+
+    phase("26 the fp32 training step at ViT-B 512 px against the JAX package's numbers")
+    t = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_width = check_full_width_loss()
+    results["fused_attention"]["fp32"]["full_width_loss_launches"] = full_width["launches"][
+        "fused_attention_f32"]
+    print(f"phase 26 took {time.time() - t:.1f} s", flush=True)
+
     kernels = []
     def vith_fields(name):  # phase 12's head_dim 80 reading and vit_h region launches,
         extra = {"head_dim_80": vith[name]} if name in vith else {}  # phase 17's, 18's, 19's
@@ -4197,6 +4372,11 @@ def main():
                                      for run, ranks in ddp.items()}  # phase 20c, by rank
         if name in pipeline["launches"]:  # phase 23: the default config's streamed region
             extra["stream_region_launches"] = pipeline["launches"][name]
+        if name in probes["launches"]:  # phase 25: both probes, every round and warm run
+            extra["stream_probe_launches"] = probes["launches"][name]
+        for stage, counts in e2e["launches"].items():  # phase 24, by the example's stage
+            if name in counts:
+                extra[f"e2e_{stage}_launches"] = counts[name]
         if name in dp["total"]:  # phase 20a: DP over the bench workload
             extra["dp_region_launches"] = dict(
                 shards=dp["shards"], rounds=dp["rounds"], batch=dp["batch"],

@@ -54,9 +54,12 @@
 // - Keys past N score -inf (their k~ and v rows load as zeros); a 16-key
 //   group of the last tile wholly past N is neither copied, split nor
 //   multiplied (S takes m64n16 there). Instances (DQK, dv) = (96, 64),
-//   (128, 64), (192, 64), (112, 80), a smaller D % 8 == 0 zero-filled.
+//   (128, 64), (192, 64), (112, 80), (64, 32) (vit_t's windows), a smaller
+//   D % 8 == 0 zero-filled. At dv 32, p.v is m64n32k8 and v's split holds
+//   32 rows (four 8-row groups) of 32 key slots; the producer's v loop and
+//   the output stores take dv / 8 groups as at 64 and 80.
 //   Shared memory a block: 168 KB at (96, 64), 208 KB at (128, 64), 224 KB
-//   at (192, 64), 200 KB at (112, 80).
+//   at (192, 64), 200 KB at (112, 80), 104 KB at (64, 32).
 // - ptxas -v: 168 registers a thread at launch (384 threads; setmaxnreg then
 //   gives the consumers 224), no spill but 16 bytes at (192, 64).
 
@@ -488,7 +491,8 @@ extern "C" {
 
 // K5 in fp32: q~ (scaled), k~ [BH, N, D] and v [BH, N, dv] -> out [BH, N, dv],
 // fp32; the bf16 kernel's instance set (dv 64 with D <= 96, 128 or 192, dv 80
-// with D <= 112; D % 8 == 0). Any N and BH up to 2^31 - 1 blocks.
+// with D <= 112, dv 32 with D <= 64; D % 8 == 0). Any N and BH up to
+// 2^31 - 1 blocks.
 int samroad_folded_attention_f32(const void* q, const void* k, const void* v, void* out,
                                  int BH, int N, int D, int dv, void* stream) {
   if (BH <= 0 || N <= 0 || D <= 0 || D % 8) return (int)cudaErrorInvalidValue;
@@ -501,6 +505,7 @@ int samroad_folded_attention_f32(const void* q, const void* k, const void* v, vo
   if (dv == 64 && D <= 128) return launch<128, 64>(qf, kf, vf, of, BH, N, D, s);
   if (dv == 64 && D <= 192) return launch<192, 64>(qf, kf, vf, of, BH, N, D, s);
   if (dv == 80 && D <= 112) return launch<112, 80>(qf, kf, vf, of, BH, N, D, s);
+  if (dv == 32 && D <= 64) return launch<64, 32>(qf, kf, vf, of, BH, N, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -76,9 +76,12 @@
 // The contraction width D = head_dim + H + W is a template parameter DQK of
 // its own beside the value width HD: instances (DQK, HD) = (96, 64) (ViT-B /
 // vit_l 14 x 14 windows, D 92, and 16 x 16 global grids), (128, 64) (32 x 32),
-// (192, 64) (64 x 64, the 1024 px config) and (112, 80) (vit_h's windows, D
-// 108, and 16 x 16 grid). A D below DQK is zero-filled to it in shared
-// memory. q~ arrives scaled, so the scale is 1 and there are no bias rows.
+// (192, 64) (64 x 64, the 1024 px config), (112, 80) (vit_h's windows, D
+// 108, and 16 x 16 grid) and (64, 32) (vit_t's windows: head_dim 32, D 60).
+// A D below DQK is zero-filled to it in shared memory. At HD 32 the p.v
+// product is m64n32k16 and a v row is 64 bytes, four 16-byte chunks: the
+// no-swizzle layout, the accumulator (16 floats a thread) and the stores
+// take it as they take 64 and 80. q~ arrives scaled, so the scale is 1 and there are no bias rows.
 // Rows of D 92 or 108 bf16 (184, 216 bytes) are 8-byte aligned only, which
 // 16-byte cp.async cannot read: fold_rel_pos_qk pads q~ and k~ with zero
 // columns to a multiple of 16 while it concatenates (zero columns add
@@ -519,7 +522,7 @@ int samroad_relpos_attention_table(const void* q, const void* k, const void* v,
 
 // K5: q~ (scaled), k~ [BH, N, D] and v [BH, N, dv] -> out [BH, N, dv], bf16;
 // (D, dv) within an instance: dv 64 with D <= 96, 128 or 192, dv 80 with
-// D <= 112; D % 8 == 0 (16-byte rows). Any N.
+// D <= 112, dv 32 with D <= 64; D % 8 == 0 (16-byte rows). Any N.
 int samroad_folded_attention(const void* q, const void* k, const void* v, void* out, int BH,
                              int N, int D, int dv, void* stream) {
   if (BH <= 0 || N <= 0 || D <= 0 || D % 8) return (int)cudaErrorInvalidValue;
@@ -531,6 +534,7 @@ int samroad_folded_attention(const void* q, const void* k, const void* v, void* 
   if (dv == 64 && D <= 128) return launch<128, 64, MODE_FOLDED>(a, BH, s);
   if (dv == 64 && D <= 192) return launch<192, 64, MODE_FOLDED>(a, BH, s);
   if (dv == 80 && D <= 112) return launch<112, 80, MODE_FOLDED>(a, BH, s);
+  if (dv == 32 && D <= 64) return launch<64, 32, MODE_FOLDED>(a, BH, s);
   return (int)cudaErrorInvalidValue;
 }
 

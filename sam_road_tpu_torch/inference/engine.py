@@ -405,8 +405,13 @@ class TiledInferenceEngine:
 
     def _phase1_whole(self, img, infos):
         """One upload of the region, then its batches in order."""
-        dev, size = self.device, img.shape[0]
-        img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(dev)
+        img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        return self._phase1_region(img_dev, infos)
+
+    def _phase1_region(self, img_dev, infos):
+        """The whole path's batches over a region already on the device:
+        returns (batches, uint8 masks)."""
+        dev, size = self.device, img_dev.shape[0]
         fused = torch.zeros((size, size, 2), dtype=torch.int32, device=dev)
         counter = torch.zeros((size, size), dtype=torch.int32, device=dev)
         batches = []
@@ -555,8 +560,7 @@ class TiledInferenceEngine:
         over [a, e), joined on the device), and the columns below band
         i + 1's anchor are final after it. Returns (batches, mask chunks,
         their host copies)."""
-        B, dev = self.batch_size, self.device
-        H, W = img.shape[:2]
+        W = img.shape[1]
         k = len(bands)
         slab_lo = [0] + [b["e"] for b in bands[:-1]]
         serial = bool(self.config.INFER_STREAM_SERIAL_UPLOAD)
@@ -573,38 +577,57 @@ class TiledInferenceEngine:
         chunks, copies, batches = [], [], []
         prev = None  # (fused, counter, a) of the previous band
         for i, band in enumerate(bands):
-            a, e = band["a"], band["e"]
-            segs = []
-            for j, lo in enumerate(slab_lo):
-                hi = bands[j]["e"]
-                if hi <= a or lo >= e:
-                    continue
-                segs.append(self.uploads.use(slabs[j])[:, max(a - lo, 0):])
-            band_img = segs[0] if len(segs) == 1 else torch.cat(segs, dim=1)
-            fused = torch.zeros((H, e - a, 2), dtype=torch.int32, device=dev)
-            counter = torch.zeros((H, e - a), dtype=torch.int32, device=dev)
-            if prev is not None:
-                # the previous band's columns [a, e_{i-1}) carry over
-                p_fused, p_counter, p_a = prev
-                seed_w = p_fused.shape[1] - (a - p_a)
-                fused[:, :seed_w] = p_fused[:, a - p_a:]
-                counter[:, :seed_w] = p_counter[:, a - p_a:]
-            info = infos[band["i0"]:band["i1"]]
-            for r0 in range(0, len(info), B):
-                part = info[r0:r0 + B]
-                xy = [(x0 - a, y0) for _, (x0, y0), _ in part]
-                quant, feats = self._phase1_batch(self.model, band_img, xy)
-                _accumulate(fused, counter, quant, xy)
-                batches.append((feats, list(part)))
+            band_img = self._band_pixels(bands, slab_lo, slabs, i)
             end = bands[i + 1]["a"] if i + 1 < k else W
-            chunk = _finalize(fused[:, :end - a], counter[:, :end - a])
+            part, chunk, prev = self._stream_band(band_img, band, infos, prev, end)
+            batches += part
             chunks.append(chunk)
             copies.append(_HostCopy(chunk))
-            prev = (fused, counter, a)
             if serial and i + 1 < k:
                 slabs[i + 1] = put_slab(i + 1)
                 self.uploads.wait(slabs[i + 1])
         return batches, chunks, copies
+
+    def _band_pixels(self, bands, slab_lo, slabs, i):
+        """Band i's pixel columns [a, e), joined on the device from the
+        segments of the slab uploads (slab j: columns [slab_lo[j], e_j))
+        that lie over them."""
+        a, e = bands[i]["a"], bands[i]["e"]
+        segs = []
+        for j, lo in enumerate(slab_lo):
+            hi = bands[j]["e"]
+            if hi <= a or lo >= e:
+                continue
+            segs.append(self.uploads.use(slabs[j])[:, max(a - lo, 0):])
+        return segs[0] if len(segs) == 1 else torch.cat(segs, dim=1)
+
+    def _stream_band(self, band_img, band, infos, prev, end):
+        """One band of the streamed phase 1: its accumulator over columns
+        [a, e), the first columns started from `prev` (the previous band's
+        (fused, counter, a), or None), its batches cropped from band_img at
+        x0 - a, and the columns [a, end) finalised. Returns (its batches,
+        the uint8 mask chunk, its (fused, counter, a) for the next band)."""
+        B, dev = self.batch_size, self.device
+        H = band_img.shape[0]
+        a, e = band["a"], band["e"]
+        fused = torch.zeros((H, e - a, 2), dtype=torch.int32, device=dev)
+        counter = torch.zeros((H, e - a), dtype=torch.int32, device=dev)
+        if prev is not None:
+            # the previous band's columns [a, e_{i-1}) carry over
+            p_fused, p_counter, p_a = prev
+            seed_w = p_fused.shape[1] - (a - p_a)
+            fused[:, :seed_w] = p_fused[:, a - p_a:]
+            counter[:, :seed_w] = p_counter[:, a - p_a:]
+        batches = []
+        info = infos[band["i0"]:band["i1"]]
+        for r0 in range(0, len(info), B):
+            part = info[r0:r0 + B]
+            xy = [(x0 - a, y0) for _, (x0, y0), _ in part]
+            quant, feats = self._phase1_batch(self.model, band_img, xy)
+            _accumulate(fused, counter, quant, xy)
+            batches.append((feats, list(part)))
+        chunk = _finalize(fused[:, :end - a], counter[:, :end - a])
+        return batches, chunk, (fused, counter, a)
 
     # ---------- phase 2 ----------
 

@@ -22,7 +22,8 @@ JAX orbax checkpoint) raises: the port cannot read orbax.
 
 The bridge (tests, chip_smoke.py) is the inverse of the JAX package's
 _convert_encoder_key / _convert_decoder_key / _convert_toponet_key and
-convert_sam_decoder_key.
+convert_sam_decoder_key; to_flax_params is its inverse, a model's weights
+as the flax tree (the tests carry the port's seeded weights into JAX).
 
 The port's parameters carry the reference's torch names, so:
   Dense kernel (in, out)              -> Linear weight (out, in)
@@ -45,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from sam_road_tpu_torch.models.sam_road import SAMRoad, init_random
-from sam_road_tpu_torch.models.vit import ENCODER_SPECS
+from sam_road_tpu_torch.models.vit import ENCODER_SPECS, LayerNorm2d
 
 # map_decoder flax module -> nn.Sequential slot of the reference decoder
 _DECODER_SLOTS = {"up_0": "0", "ln_1": "1", "up_2": "3", "up_3": "5", "up_4": "7"}
@@ -157,6 +158,77 @@ def from_flax_params(tree) -> dict:
             raise KeyError(f"flax leaf {'/'.join(path)} has no counterpart") from e
         out[key] = torch.tensor(_transform(arr, op), dtype=torch.float32)
     return out
+
+
+_SAM_PARAMS_BY_KEY = {v: k for k, v in _SAM_PARAMS.items()}
+# torch module path -> flax module path, per top-level module: the inverse
+# of _RENAMES, _DECODER_SLOTS and _SAM_RENAMES (LoRA's adapters move from
+# children of qkv to its siblings)
+_FLAX_RENAMES = {
+    "image_encoder": [(r"\bblocks\.(\d+)", r"blocks_\1"), (r"\bneck\.(\d+)", r"neck_\1"),
+                      (r"\bpatch_embed\.proj\b", "patch_embed_proj"),
+                      (r"\bmlp\.lin(\d)", r"mlp_lin\1"),
+                      (r"\bqkv\.(linear_[ab]_[qv])\b", r"\1")],
+    "topo_net": [(r"\btransformer_encoder\.layers\.(\d+)", r"layers_\1")],
+    "map_decoder": [(rf"^{slot}$", name) for name, slot in _DECODER_SLOTS.items()],
+    "sam_decoder": [(r"\boutput_hypernetworks_mlps\.(\d+)", r"hyper_mlps_\1"),
+                    (r"\boutput_upscaling\.(\d)", r"upscale_\1"),
+                    (r"\blayers\.(\d+)", r"layers_\1"), (r"\bmlp\.lin(\d)", r"mlp_lin\1")],
+}
+
+
+def _flax_path(model: torch.nn.Module, key: str, value: torch.Tensor) -> tuple:
+    """A state-dict key -> its flax path: the inverse of _torch_name. A
+    weight is a kernel where it is a matrix or a conv kernel, a LayerNorm's
+    scale, or LayerNorm2d's weight."""
+    if key in _SAM_PARAMS_BY_KEY:
+        return ("sam_decoder", _SAM_PARAMS_BY_KEY[key])
+    mod, leaf = key.rsplit(".", 1)
+    top, _, rest = mod.partition(".")
+    if top == "mask_decoder":
+        top = "sam_decoder"
+    if top not in _FLAX_RENAMES:
+        raise KeyError(f"state-dict key {key} has no flax counterpart")
+    mods = []
+    if leaf in ("in_proj_weight", "in_proj_bias"):  # nn.MultiheadAttention packing
+        mods, leaf = ["in_proj"], "kernel" if leaf == "in_proj_weight" else "bias"
+    elif leaf == "weight":
+        if value.dim() >= 2:
+            leaf = "kernel"
+        elif not isinstance(model.get_submodule(mod), LayerNorm2d):
+            leaf = "scale"
+    for pat, rep in _FLAX_RENAMES[top]:
+        rest = re.sub(pat, rep, rest)
+    return (top, *rest.split("."), *mods, leaf) if rest else (top, *mods, leaf)
+
+
+def _inverse_transform(arr: np.ndarray, op):
+    if op == "row":
+        return arr[0]
+    if op == "convT":
+        return arr.transpose(2, 3, 0, 1)
+    if op == "kernel":
+        return arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+    return arr
+
+
+def to_flax_params(model: torch.nn.Module) -> dict:
+    """A model's weights as the flax parameter tree of the JAX package's
+    init_params (nested dicts of float32 numpy arrays), the inverse of
+    from_flax_params. Raises where a key has no flax path that maps back to
+    it."""
+    tree: dict = {}
+    for key, value in model.state_dict().items():
+        path = _flax_path(model, key, value)
+        back, op = _torch_name(path)
+        if back != key:
+            raise KeyError(f"state-dict key {key} -> flax {'/'.join(path)} -> {back}")
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(
+            _inverse_transform(value.detach().float().cpu().numpy(), op))
+    return tree
 
 
 def load_flax_params(module: torch.nn.Module, tree, scope: str | None = None):

@@ -128,8 +128,9 @@ def fused_attention_plain(q, k, v):
 
 # K5's instances in csrc/relpos_attention.cu, (contraction width, value
 # width): ViT-B / vit_l's windows (D 92) and 16 x 16 grids (96), the 32 x 32
-# (128) and 64 x 64 (192) grids, vit_h's windows (108) and 16 x 16 grid (112)
-FOLDED_INSTANCES = ((96, 64), (128, 64), (192, 64), (112, 80))
+# (128) and 64 x 64 (192) grids, vit_h's windows (108) and 16 x 16 grid
+# (112), vit_t's windows (head_dim 32: D 60)
+FOLDED_INSTANCES = ((96, 64), (128, 64), (192, 64), (112, 80), (64, 32))
 
 
 def folded_instance(D: int, dv: int) -> tuple:

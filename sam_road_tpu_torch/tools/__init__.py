@@ -12,4 +12,6 @@ profile_encoder and experiment_fused_encoder. The training measurement
 tools, which carry no kernel either: profile_training_feed,
 experiment_train_memory, sweep_train_throughput, experiment_fused_train,
 profile_topo (host only) and verify_real_ckpt; _train.py and _fixtures.py
-hold what they share."""
+hold what they share. The streamed phase 1's probes: probe_stream_sched and
+probe_band_overhead; full_width_loss holds the fp32 training step to the
+JAX package's numbers (full_width_loss.json)."""

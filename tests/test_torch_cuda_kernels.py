@@ -128,6 +128,7 @@ FOLDED_SHAPES = [
     (1, 64, 12, 64),   # 1024 px global: D 192
     (16, 14, 16, 80),  # vit_h window: D 108 -> instance 112
     (4, 16, 16, 80),   # vit_h 256 px global: D 112
+    (16, 14, 2, 32),   # vit_t window (head_dim 32): D 60 -> 64, instance (64, 32)
 ]
 
 
@@ -156,13 +157,14 @@ def test_cuda_fused_attention_forward_and_backward(cuda, B, side, heads, hd):
 
 # K5's fp32 kernel off the main path's shapes: ragged N (169 tokens: N % 16
 # = 9; 25 tokens at D 80, a 16-column chunk past D in the 96 instance; 81 at
-# vit_h's instance) and B x heads = 70000 at 16 tokens, past the 65535 a
-# grid's y could hold
+# vit_h's instance and at vit_t's) and B x heads = 70000 at 16 tokens, past
+# the 65535 a grid's y could hold
 FOLDED_F32_MORE = [
     (3, 13, 12, 64),
     (2, 5, 12, 64),
     (2, 9, 16, 80),
     (5000, 4, 14, 64),
+    (3, 9, 2, 32),
 ]
 
 

@@ -176,6 +176,7 @@ def test_padded_fold_attends_as_the_jax_unpadded_fold(hd, H, W):
     (92, 64, None), (96, 64, (96, 64)), (104, 64, (128, 64)), (128, 64, (128, 64)),
     (136, 64, (192, 64)), (192, 64, (192, 64)), (108, 80, None), (112, 80, (112, 80)),
     (104, 80, (112, 80)), (200, 64, None), (120, 80, None), (96, 32, None), (96, 128, None),
+    (64, 32, (64, 32)), (56, 32, (64, 32)), (60, 32, None), (72, 32, None),
 ])
 def test_folded_instance_choice(D, dv, want):
     """K5's instance (DQK, HD) for a contraction width D and value width dv:
