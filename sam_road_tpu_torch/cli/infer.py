@@ -17,7 +17,9 @@ package's ckpt_epoch_N.pt loads strictly; a SAM .pth or SAMRoad .ckpt goes
 through the pos-embed resize and the name-and-shape overlay onto a model
 initialised with init_random(seed 0). A JAX orbax directory raises.
 --device cuda (the default) raises when torch sees no GPU. Returns the
-output directory.
+output directory. The config's TRACE_DIR, where set, writes a Chrome trace
+of the tile loop there (utils/profiling.py::maybe_trace), with the engine's
+spans; each tile's line prints its last_timings.
 
 Several cards, one process (inference/engine.py): DP_SHARDS > 1 bands each
 tile's patch grid over the first DP_SHARDS visible CUDA devices (masks
@@ -65,6 +67,7 @@ def main(argv=None):
     from sam_road_tpu_torch.graph.convert import convert_to_sat2graph_format
     from sam_road_tpu_torch.inference.engine import TiledInferenceEngine
     from sam_road_tpu_torch.models.convert import load_weights
+    from sam_road_tpu_torch.utils.profiling import maybe_trace
     from sam_road_tpu_torch.utils.viz import visualize_image_and_graph
 
     config = load_config(args.config)
@@ -110,25 +113,27 @@ def main(argv=None):
 
     total_inference_seconds = 0.0
     loop_start = time.time()
-    for img_id, img, result in zip(test_img_indices, imgs, engine.infer_tiles(imgs)):
-        print(f"Processing {img_id}", flush=True)
-        pred_nodes, pred_edges, itsc_mask, road_mask = result
-        total_inference_seconds = time.time() - loop_start
+    # TRACE_DIR: a Chrome trace of the loop, the engine's spans in it
+    with maybe_trace(config.TRACE_DIR or None):
+        for img_id, img, result in zip(test_img_indices, imgs, engine.infer_tiles(imgs)):
+            print(f"Processing {img_id}", flush=True)
+            pred_nodes, pred_edges, itsc_mask, road_mask = result
+            total_inference_seconds = time.time() - loop_start
 
-        write_png(os.path.join(output_dir, "mask", f"{img_id}_road.png"), road_mask)
-        write_png(os.path.join(output_dir, "mask", f"{img_id}_itsc.png"), itsc_mask)
+            write_png(os.path.join(output_dir, "mask", f"{img_id}_road.png"), road_mask)
+            write_png(os.path.join(output_dir, "mask", f"{img_id}_itsc.png"), itsc_mask)
 
-        img_size = img.shape[0]
-        viz_img = visualize_image_and_graph(img, pred_nodes / img_size, pred_edges, img_size)
-        write_png(os.path.join(output_dir, "viz", f"{img_id}.png"), viz_img[..., ::-1])
+            img_size = img.shape[0]
+            viz_img = visualize_image_and_graph(img, pred_nodes / img_size, pred_edges, img_size)
+            write_png(os.path.join(output_dir, "viz", f"{img_id}.png"), viz_img[..., ::-1])
 
-        if config.DATASET == "spacenet":
-            # (r, c) -> the SpaceNet ground-truth frame
-            pred_nodes = np.stack([img_size - pred_nodes[:, 0], pred_nodes[:, 1]], axis=1)
-        large_map = convert_to_sat2graph_format(pred_nodes, pred_edges)
-        with open(os.path.join(output_dir, "graph", f"{img_id}.p"), "wb") as f:
-            pickle.dump(large_map, f)
-        print(f"Done for {img_id}. timings={engine.last_timings}", flush=True)
+            if config.DATASET == "spacenet":
+                # (r, c) -> the SpaceNet ground-truth frame
+                pred_nodes = np.stack([img_size - pred_nodes[:, 0], pred_nodes[:, 1]], axis=1)
+            large_map = convert_to_sat2graph_format(pred_nodes, pred_edges)
+            with open(os.path.join(output_dir, "graph", f"{img_id}.p"), "wb") as f:
+                pickle.dump(large_map, f)
+            print(f"Done for {img_id}. timings={engine.last_timings}", flush=True)
 
     time_txt = f"Inference completed for {args.config} in {total_inference_seconds} seconds."
     print(time_txt)

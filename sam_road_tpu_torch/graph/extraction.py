@@ -15,6 +15,7 @@ import heapq
 import numpy as np
 
 from sam_road_tpu_torch.graph.nms import nms_points
+from sam_road_tpu_torch.utils.profiling import span
 from sam_road_tpu_torch.utils.viz import draw_disks
 
 
@@ -28,17 +29,23 @@ def get_points_and_scores_from_mask(mask, threshold):
 def extract_graph_points(keypoint_mask, road_mask, config):
     """Fused uint8 masks -> NMS'd vertex set [N, 2] (x, y): keypoint and
     road candidates are thresholded and NMS'd separately, then unioned with
-    keypoint priority and NMS'd once more."""
-    kp_xy, kp_scores = get_points_and_scores_from_mask(
-        keypoint_mask, config.ITSC_THRESHOLD * 255)
-    kps_0 = nms_points(kp_xy, kp_scores, config.ITSC_NMS_RADIUS)
-    road_xy, road_scores = get_points_and_scores_from_mask(
-        road_mask, config.ROAD_THRESHOLD * 255)
-    kps_1 = nms_points(road_xy, road_scores, config.ROAD_NMS_RADIUS)
-    candidates = np.concatenate([kps_0, kps_1], axis=0)
-    priority = np.concatenate(
-        [np.ones((kps_0.shape[0],)), np.zeros((kps_1.shape[0],))], axis=0)
-    return nms_points(candidates, priority, config.ROAD_NMS_RADIUS)
+    keypoint priority and NMS'd once more. Spans (utils/profiling.py):
+    extract.threshold, extract.nms_keypoint, extract.nms_road,
+    extract.nms_final."""
+    with span("extract.threshold"):
+        kp_xy, kp_scores = get_points_and_scores_from_mask(
+            keypoint_mask, config.ITSC_THRESHOLD * 255)
+        road_xy, road_scores = get_points_and_scores_from_mask(
+            road_mask, config.ROAD_THRESHOLD * 255)
+    with span("extract.nms_keypoint"):
+        kps_0 = nms_points(kp_xy, kp_scores, config.ITSC_NMS_RADIUS)
+    with span("extract.nms_road"):
+        kps_1 = nms_points(road_xy, road_scores, config.ROAD_NMS_RADIUS)
+    with span("extract.nms_final"):
+        candidates = np.concatenate([kps_0, kps_1], axis=0)
+        priority = np.concatenate(
+            [np.ones((kps_0.shape[0],)), np.zeros((kps_1.shape[0],))], axis=0)
+        return nms_points(candidates, priority, config.ROAD_NMS_RADIUS)
 
 
 # ---------------- legacy A* extraction ----------------

@@ -78,9 +78,28 @@ Phase 2 (_dispatch_phase2, _collect_scores) as the JAX engine runs it:
     where its pair arguments equal the final ones byte for byte, and
     dispatches it again otherwise.
 No mode changes a result: the outputs equal the default path's bit for bit.
-`last_timings` holds the JAX engine's keys: phase1, extract, phase2, total
-and the phase-2 split p2_build / p2_dispatch / p2_fetch, with spec_* where
-speculation ran.
+`last_timings` holds the JAX engine's keys, each the region's own host
+seconds: phase1 (its dispatch and its wait for the masks), extract, phase2
+(the pairs built, scored and fetched), total (phase1 + extract + phase2 +
+aggregate; no total where no vertex is found) and the phase-2 split
+p2_build / p2_dispatch / p2_fetch, with spec_* where speculation ran; and
+the port's TIMING_KEYS. Under infer_tiles region i + 1's phase 1 is
+dispatched before region i's host half, and each region still counts only
+its own. Every timer is a span of utils/profiling.py, so a torch.profiler
+trace shows the same blocks by name:
+  engine.phase1            _run_phase1: phase 1's host dispatch
+  engine.fetch_masks       the host blocked on phase 1's mask copies
+  engine.extract           extract_graph_points (extract.threshold,
+                           extract.nms_keypoint, extract.nms_road,
+                           extract.nms_final)
+  engine.phase2            engine.p2.build (pairs.knn, pairs.pack),
+                           engine.p2.dispatch, engine.p2.fetch (the stacked
+                           copies), engine.p2.collect (their decode)
+  engine.aggregate         _aggregate_edges (aggregate.unique,
+                           aggregate.sums), or the device aggregation's
+                           decode
+  engine.spec              _speculate_phase2 (engine.spec.wait,
+                           engine.spec.extract)
 
 On CUDA the streamed and banded slabs go through pinned host buffers on a
 copy stream of their own, which the compute stream waits for by events,
@@ -92,7 +111,6 @@ the engine does not read it.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -102,8 +120,10 @@ from sam_road_tpu_torch.data.partitions import get_patch_info_one_img
 from sam_road_tpu_torch.graph.extraction import extract_graph_points
 from sam_road_tpu_torch.inference.pairs import build_pairs_for_boxes
 from sam_road_tpu_torch.models.fast_encoder import encoder_forward_fused
+from sam_road_tpu_torch.ops import _build
 from sam_road_tpu_torch.parallel.mesh import on_device, replicate, replicated_sharding
 from sam_road_tpu_torch.parallel.seq_parallel import make_sp_encoder_body
+from sam_road_tpu_torch.utils.profiling import span
 
 MASK_QUANT = 1024
 NAN_Q = -(2 ** 15)  # the int16 score of a NaN
@@ -113,6 +133,19 @@ NAN_Q = -(2 ** 15)  # the int16 score of a NaN
 # can lower them, as the JAX engine's tests do).
 _AGG_MAX_VERTS = 65536
 _AGG_MAX_EDGE_PAD = 65535
+
+# last_timings' keys beyond the JAX engine's, a region's own:
+#   p1_dispatch  host seconds of _run_phase1 (engine.phase1)
+#   mask_wait    host seconds blocked on the mask copies (engine.fetch_masks)
+#   aggregate    host seconds of the edge aggregation (engine.aggregate)
+#   launches     the port's kernel launches (ops/_build.py::launches) in
+#                the region's _run_phase1 and _finish
+#   p1_device    CUDA only: seconds between two events on the compute
+#                stream, before phase 1's first launch and after its last
+#                mask chunk's copy to the host was queued. Phase 1's span
+#                on the stream: it includes the stream's stalls on the slab
+#                uploads and on the host's enqueue.
+TIMING_KEYS = ("p1_dispatch", "mask_wait", "aggregate", "launches", "p1_device")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -172,11 +205,6 @@ def _finalize(fused, counter):
     avg = fused.float() / denom[..., None]
     avg = torch.where(counter[..., None] > 0, avg, torch.zeros_like(avg))
     return (avg * 255.0).to(torch.uint8)
-
-
-def fine_timings() -> dict:
-    """The phase-2 split's host seconds, from zero (last_timings' p2_* keys)."""
-    return {"p2_build": 0.0, "p2_dispatch": 0.0, "p2_fetch": 0.0}
 
 
 class _Args(NamedTuple):
@@ -368,8 +396,16 @@ class TiledInferenceEngine:
         """Dispatch phase 1 for a region; returns its batches, its uint8
         mask chunks on the device (column bands, left to right: one for
         every path but the streamed one) and their copies to the host,
-        which may still be running."""
-        t0 = time.time()
+        which may still be running; under "timings", its p1_dispatch
+        seconds and launches, and on CUDA the events of its span on the
+        compute stream."""
+        launched = _build.launches.total()
+        with span("engine.phase1") as s:
+            p1 = self._phase1(img)
+        p1["timings"] = dict(p1_dispatch=s.seconds, launches=_build.launches.total() - launched)
+        return p1
+
+    def _phase1(self, img: np.ndarray) -> dict:
         if img.ndim != 3 or img.shape[0] != img.shape[1] or img.shape[2] != 3:
             raise ValueError(f"region must be square HxWx3, got {img.shape}")
         if img.dtype != np.uint8:
@@ -381,6 +417,7 @@ class TiledInferenceEngine:
         B = self.batch_size
         spec = plan = None
         with on_device(self.device):
+            events = self._stream_event()
             if self.n_shards > 1:
                 batches, masks = self._phase1_banded(
                     torch.from_numpy(np.ascontiguousarray(img)), infos)
@@ -389,10 +426,6 @@ class TiledInferenceEngine:
                   and (plan := self._stream_plan(infos, size,
                                                  int(cfg.INFER_STREAM_BANDS or 2))) is not None):
                 batches, chunks, copies = self._phase1_streamed(img, infos, plan)
-                if (bool(cfg.INFER_P2_SPECULATIVE) and len(plan) >= 2 and self.sp_shards < 1
-                        and not bool(cfg.INFER_P2_PACK_ARGS)
-                        and not bool(cfg.INFER_P2_DEVICE_AGG)):
-                    spec = self._speculate_phase2(plan, batches, copies)
             elif self.sp_shards < 1 and int(cfg.INFER_UPLOAD_BANDS or 1) > 1 and len(infos) > B:
                 batches, masks = self._phase1_banded_upload(img, infos,
                                                             int(cfg.INFER_UPLOAD_BANDS))
@@ -400,8 +433,22 @@ class TiledInferenceEngine:
             else:
                 batches, masks = self._phase1_whole(img, infos)
                 chunks, copies = [masks], [_HostCopy(masks)]
+            if events is not None:
+                events = (events, self._stream_event())
+            if (plan is not None and bool(cfg.INFER_P2_SPECULATIVE) and len(plan) >= 2
+                    and self.sp_shards < 1 and not bool(cfg.INFER_P2_PACK_ARGS)
+                    and not bool(cfg.INFER_P2_DEVICE_AGG)):
+                spec = self._speculate_phase2(plan, batches, copies)
         return dict(image_size=size, batches=batches, masks=tuple(chunks), copies=copies,
-                    plan=plan, spec=spec, t0=t0)
+                    plan=plan, spec=spec, events=events)
+
+    def _stream_event(self):
+        """A timing event recorded now on the compute stream (CUDA), or None."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
 
     def _phase1_whole(self, img, infos):
         """One upload of the region, then its batches in order."""
@@ -669,26 +716,29 @@ class TiledInferenceEngine:
         max_nbr = int(cfg.MAX_NEIGHBOR_QUERIES)
         # None: a slot of a DP round past its shard's patches, or banded
         # padding: a degenerate box, no points
-        boxes = np.array([(0.0, 0.0, -1.0, -1.0) if e is None else (*e[1], *e[2])
-                          for e in info], np.float64)
-        per_patch = build_pairs_for_boxes(graph_points, boxes, max_nbr,
-                                          float(cfg.NEIGHBOR_RADIUS))
+        with span("pairs.knn"):
+            boxes = np.array([(0.0, 0.0, -1.0, -1.0) if e is None else (*e[1], *e[2])
+                              for e in info], np.float64)
+            per_patch = build_pairs_for_boxes(graph_points, boxes, max_nbr,
+                                              float(cfg.NEIGHBOR_RADIUS))
         max_pts = max(pp[1].shape[0] for pp in per_patch)
         if max_pts == 0:
             return None
         S = _bucket_size(max_pts, self.point_bucket)
         if S >= 32768:
             raise ValueError(f"point bucket {S} exceeds the int16 pair index range")
-        nb = len(info)
-        bpoints = np.zeros((nb, S, 2), np.uint16)
-        btgt = np.zeros((nb, S, max_nbr), np.int16)
-        bvalid = np.zeros((nb, S, max_nbr), bool)
-        for i, (_, pts, pairs, valid) in enumerate(per_patch):
-            n = pts.shape[0]
-            bpoints[i, :n] = pts
-            btgt[i, :n] = pairs[..., 1]
-            bvalid[i, :n] = valid
-        return _Args(per_patch, bpoints, btgt, np.packbits(bvalid, axis=-1), S, bvalid)
+        with span("pairs.pack"):
+            nb = len(info)
+            bpoints = np.zeros((nb, S, 2), np.uint16)
+            btgt = np.zeros((nb, S, max_nbr), np.int16)
+            bvalid = np.zeros((nb, S, max_nbr), bool)
+            for i, (_, pts, pairs, valid) in enumerate(per_patch):
+                n = pts.shape[0]
+                bpoints[i, :n] = pts
+                btgt[i, :n] = pairs[..., 1]
+                bvalid[i, :n] = valid
+            packed = np.packbits(bvalid, axis=-1)
+        return _Args(per_patch, bpoints, btgt, packed, S, bvalid)
 
     def _speculate_phase2(self, plan, batches, copies):
         """INFER_P2_SPECULATIVE (JAX's _speculate_phase2): wait for the mask
@@ -699,74 +749,96 @@ class TiledInferenceEngine:
         the final ones byte for byte."""
         cfg = self.config
         B = self.batch_size
-        t0 = time.time()
         frontier = plan[-1]["a"]
         guard = int(cfg.INFER_P2_SPEC_GUARD or 0) or 2 * int(cfg.ROAD_NMS_RADIUS)
-        chunks_np = [c.numpy() for c in copies[:-1]]
-        prov = np.concatenate(chunks_np, axis=1)  # columns [0, frontier)
-        t_masks = time.time()
-        prov_points = extract_graph_points(np.ascontiguousarray(prov[..., 0]),
-                                           np.ascontiguousarray(prov[..., 1]), cfg)
-        t_extract = time.time()
         entries = {}
+        with span("engine.spec") as whole:
+            with span("engine.spec.wait") as wait:
+                chunks_np = [c.numpy() for c in copies[:-1]]
+                prov = np.concatenate(chunks_np, axis=1)  # columns [0, frontier)
+            with span("engine.spec.extract") as extract:
+                prov_points = extract_graph_points(np.ascontiguousarray(prov[..., 0]),
+                                                   np.ascontiguousarray(prov[..., 1]), cfg)
+            # no provisional vertex: nothing to score
+            n_spec = sum((b["i1"] - b["i0"]) // B for b in plan[:-1]) if prov_points.shape[0] else 0
+            for bi in range(n_spec):
+                feats, info = batches[bi]
+                if any(e is not None and e[2][0] > frontier - guard for e in info):
+                    continue
+                args = self._build_args(info, prov_points)
+                if args is None:
+                    continue
+                q = self._scores_q(feats, *self._put(args.points, args.tgt, args.valid_packed))
+                entries[bi] = _SpecEntry(q, args.points, args.tgt, args.valid_packed, args.S)
         stats = {"spec_points": int(prov_points.shape[0]),
-                 "spec_wait_s": round(t_masks - t0, 4),
-                 "spec_extract_s": round(t_extract - t_masks, 4)}
-        if prov_points.shape[0] == 0:
-            stats["spec_s"] = round(time.time() - t0, 4)
-            return {"entries": entries, "chunks_np": chunks_np, **stats}
-        n_spec = sum((b["i1"] - b["i0"]) // B for b in plan[:-1])
-        for bi in range(n_spec):
-            feats, info = batches[bi]
-            if any(e is not None and e[2][0] > frontier - guard for e in info):
-                continue
-            args = self._build_args(info, prov_points)
-            if args is None:
-                continue
-            q = self._scores_q(feats, *self._put(args.points, args.tgt, args.valid_packed))
-            entries[bi] = _SpecEntry(q, args.points, args.tgt, args.valid_packed, args.S)
-        stats["spec_dispatched"] = len(entries)
-        stats["spec_s"] = round(time.time() - t0, 4)
+                 "spec_wait_s": round(wait.seconds, 4),
+                 "spec_extract_s": round(extract.seconds, 4)}
+        if prov_points.shape[0]:
+            stats["spec_dispatched"] = len(entries)
+        stats["spec_s"] = round(whole.seconds, 4)
         return {"entries": entries, "chunks_np": chunks_np, **stats}
 
     def _fetch_masks(self, p1: dict) -> np.ndarray:
         """The region's uint8 masks [H, W, 2] on the host: the chunks that
-        speculation already read, then the rest, each after its copy."""
+        speculation already read, then the rest, each after its copy. Then,
+        on CUDA, phase 1's span on the stream into p1's p1_device."""
         done = p1["spec"]["chunks_np"] if p1.get("spec") else []
         parts = done + [c.numpy() for c in p1["copies"][len(done):]]
+        if p1.get("events"):
+            start, end = p1["events"]
+            end.synchronize()  # recorded after the last copy: done by now
+            p1["timings"]["p1_device"] = start.elapsed_time(end) * 1e-3
         return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
 
     @torch.no_grad()
     def _finish(self, p1: dict):
-        """Host half: fetch masks, extract vertices, score and aggregate."""
-        cfg = self.config
-        t0 = p1["t0"]
-        masks = self._fetch_masks(p1)  # sync point
-        kp_mask = np.ascontiguousarray(masks[..., 0])
-        road_mask = np.ascontiguousarray(masks[..., 1])
-        t1 = time.time()
-        graph_points = extract_graph_points(kp_mask, road_mask, cfg)
-        t2 = time.time()
-        if graph_points.shape[0] == 0:
-            self.last_timings = {"phase1": t1 - t0, "extract": t2 - t1, "phase2": 0.0}
+        """Host half: fetch masks, extract vertices, score and aggregate.
+        Sets last_timings (the module docstring) for p1's region."""
+        launched = _build.launches.total()
+        with span("engine.fetch_masks") as wait:
+            masks = self._fetch_masks(p1)  # sync point
+            kp_mask = np.ascontiguousarray(masks[..., 0])
+            road_mask = np.ascontiguousarray(masks[..., 1])
+        t = {**p1["timings"], "mask_wait": wait.seconds}
+        with span("engine.extract", t, "extract"):
+            graph_points = extract_graph_points(kp_mask, road_mask, self.config)
+        edges = self._phase2_and_aggregate(p1, graph_points, t)
+        t["phase1"] = t["p1_dispatch"] + t["mask_wait"]
+        t["launches"] += _build.launches.total() - launched
+        t.setdefault("aggregate", 0.0)
+        ours = {k: t[k] for k in TIMING_KEYS if k in t}
+        if edges is None:  # no vertex: JAX's three keys
+            self.last_timings = {"phase1": t["phase1"], "extract": t["extract"], "phase2": 0.0,
+                                 **ours}
             return graph_points, np.zeros((0, 2), np.int64), kp_mask, road_mask
+        self.last_timings = {
+            "phase1": t["phase1"], "extract": t["extract"], "phase2": t["phase2"],
+            "total": t["phase1"] + t["extract"] + t["phase2"] + t["aggregate"],
+            **{k: round(v, 4) for k, v in t.items() if k.startswith(("p2_", "spec_"))}, **ours}
+        return graph_points[:, ::-1], edges, kp_mask, road_mask
 
-        fine = fine_timings()
+    def _phase2_and_aggregate(self, p1: dict, graph_points, t: dict):
+        """Phase 2 and the aggregation of p1's region at graph_points:
+        their seconds into t (phase2, p2_*, spec_*, aggregate). Returns the
+        edges, or None where there is no vertex."""
+        if graph_points.shape[0] == 0:
+            return None
         spec = p1.get("spec")
         if spec is not None:
-            fine.update({k: v for k, v in spec.items() if k not in ("entries", "chunks_np")})
-            fine["spec_hits"] = 0
-            fine["spec_miss"] = 0
-        with on_device(self.device):
-            pending, pred_edges = self._dispatch_phase2(p1["batches"], graph_points, fine, spec)
-            scored = self._collect_scores(pending, fine)
-        t3 = time.time()
+            t.update({k: v for k, v in spec.items() if k not in ("entries", "chunks_np")})
+            t["spec_hits"] = 0
+            t["spec_miss"] = 0
+        with span("engine.phase2") as p2, on_device(self.device):
+            pending, pred_edges = self._dispatch_phase2(p1["batches"], graph_points, t, spec)
+            scored = self._collect_scores(pending, t)
+        for k in ("p2_build", "p2_dispatch", "p2_fetch"):  # JAX's keys, whatever ran
+            t.setdefault(k, 0.0)
+        # the device aggregation decodes inside phase 2's span: aggregate
+        t["phase2"] = p2.seconds - t.get("aggregate", 0.0)
         if pred_edges is None:  # the host aggregation
-            pred_edges = self._aggregate_edges(scored, graph_points.shape[0])
-        self.last_timings = {"phase1": t1 - t0, "extract": t2 - t1, "phase2": t3 - t2,
-                             "total": time.time() - t0,
-                             **{k: round(v, 4) for k, v in fine.items()}}
-        return graph_points[:, ::-1], pred_edges, kp_mask, road_mask
+            with span("engine.aggregate", t, "aggregate"):
+                pred_edges = self._aggregate_edges(scored, graph_points.shape[0])
+        return pred_edges
 
     def _dispatch_phase2(self, batches, graph_points, fine: dict | None = None, spec=None):
         """Build each phase-1 batch's pairs on the host and dispatch its
@@ -774,11 +846,12 @@ class TiledInferenceEngine:
         arguments match stands in for its dispatch); with
         INFER_P2_PACK_ARGS or INFER_P2_DEVICE_AGG every batch is built
         first. Adds the host seconds to `fine`'s p2_build / p2_dispatch (and
-        the speculation's hits and misses). Returns (pending: [(int16 scores
+        p2_fetch and aggregate where the device aggregation runs; the
+        speculation's hits and misses). Returns (pending: [(int16 scores
         on the device, per-patch pairs)], unfetched; the device
         aggregation's edges, or None where it did not run)."""
         cfg = self.config
-        fine = fine_timings() if fine is None else fine
+        fine = {} if fine is None else fine
         entries = (spec or {}).get("entries", {})
         pack = bool(cfg.INFER_P2_PACK_ARGS) and self.n_shards == 1
         agg = bool(cfg.INFER_P2_DEVICE_AGG) and self.n_shards == 1 and self.sp_shards < 1
@@ -791,9 +864,8 @@ class TiledInferenceEngine:
             agg = False
         pending, built = [], []
         for bi, (feats, info) in enumerate(batches):
-            t = time.time()
-            args = self._build_args(info, graph_points)
-            fine["p2_build"] += time.time() - t
+            with span("engine.p2.build", fine, "p2_build"):
+                args = self._build_args(info, graph_points)
             if args is None:
                 continue
             if isinstance(feats, list):  # DP: the round's shards, pooled on the device
@@ -811,11 +883,10 @@ class TiledInferenceEngine:
                     fine["spec_hits"] += 1
                     continue
                 fine["spec_miss"] += 1
-            t = time.time()
-            pending.append((self._scores_q(feats, *self._put(args.points, args.tgt,
-                                                              args.valid_packed)),
-                            args.per_patch))
-            fine["p2_dispatch"] += time.time() - t
+            with span("engine.p2.dispatch", fine, "p2_dispatch"):
+                pending.append((self._scores_q(feats, *self._put(args.points, args.tgt,
+                                                                  args.valid_packed)),
+                                args.per_patch))
         agg_edges = self._device_agg(built, graph_points.shape[0], fine) if agg and built else None
         if built and agg_edges is None:
             pending += self._dispatch_packed(built, fine)
@@ -825,23 +896,21 @@ class TiledInferenceEngine:
         """INFER_P2_PACK_ARGS (and the device aggregation's fall-back): one
         upload per kind of argument for every built batch, padded to the
         largest S, each batch's scoring on its slice."""
-        t = time.time()
-        first = built[0][1]
-        nb, S_max = len(built), max(args.S for _, args in built)
-        b, K = first.tgt.shape[0], first.tgt.shape[-1]
-        pk_pts = np.zeros((nb, b, S_max, 2), np.uint16)
-        pk_tgt = np.zeros((nb, b, S_max, K), np.int16)
-        pk_val = np.zeros((nb, b, S_max, first.valid_packed.shape[-1]), np.uint8)
-        for i, (_, args) in enumerate(built):
-            pk_pts[i, :, :args.S] = args.points
-            pk_tgt[i, :, :args.S] = args.tgt
-            pk_val[i, :, :args.S] = args.valid_packed
-        dev_pts, dev_tgt, dev_val = self._put(pk_pts, pk_tgt, pk_val)
-        pending = [(self._scores_q(feats, dev_pts[i, :, :args.S], dev_tgt[i, :, :args.S],
-                                   dev_val[i, :, :args.S]), args.per_patch)
-                   for i, (feats, args) in enumerate(built)]
-        fine["p2_dispatch"] += time.time() - t
-        return pending
+        with span("engine.p2.dispatch", fine, "p2_dispatch"):
+            first = built[0][1]
+            nb, S_max = len(built), max(args.S for _, args in built)
+            b, K = first.tgt.shape[0], first.tgt.shape[-1]
+            pk_pts = np.zeros((nb, b, S_max, 2), np.uint16)
+            pk_tgt = np.zeros((nb, b, S_max, K), np.int16)
+            pk_val = np.zeros((nb, b, S_max, first.valid_packed.shape[-1]), np.uint8)
+            for i, (_, args) in enumerate(built):
+                pk_pts[i, :, :args.S] = args.points
+                pk_tgt[i, :, :args.S] = args.tgt
+                pk_val[i, :, :args.S] = args.valid_packed
+            dev_pts, dev_tgt, dev_val = self._put(pk_pts, pk_tgt, pk_val)
+            return [(self._scores_q(feats, dev_pts[i, :, :args.S], dev_tgt[i, :, :args.S],
+                                    dev_val[i, :, :args.S]), args.per_patch)
+                    for i, (feats, args) in enumerate(built)]
 
     def _device_agg(self, built, n_points: int, fine: dict):
         """INFER_P2_DEVICE_AGG (JAX: engine.py:1187-1270): the unique
@@ -850,60 +919,56 @@ class TiledInferenceEngine:
         upload, each batch's scores added on the device, one fetch. Returns
         the kept edges, or None where E_pad exceeds the uint16 ids."""
         cfg = self.config
-        t = time.time()
-        keys_per, all_keys = [], []
-        for _, args in built:
-            b = args.tgt.shape[0]
-            gp = np.zeros((b, args.S), np.uint16)
-            for i, (pidx, pts, _, _) in enumerate(args.per_patch):
-                gp[i, :pts.shape[0]] = pidx
-            gtgt = gp[np.arange(b)[:, None, None], args.tgt.astype(np.int64)].astype(np.uint32)
-            keys = (gp[:, :, None].astype(np.uint32) << 16) | gtgt
-            keys_per.append(keys)
-            all_keys.append(keys[args.valid])
-        cat = np.concatenate(all_keys)
-        if cat.size == 0:
-            fine["p2_build"] += time.time() - t
-            self.last_agg = dict(vertices=n_points, E=0, E_pad=None, path="device")
-            return np.zeros((0, 2), dtype=np.int64)
-        uniq = np.unique(cat)
-        E = uniq.shape[0]
-        E_pad = _bucket_size(E, 1024)
-        self.last_agg = dict(vertices=n_points, E=int(E), E_pad=int(E_pad), path="device")
-        if E_pad > _AGG_MAX_EDGE_PAD:
-            print(f"[engine] INFER_P2_DEVICE_AGG: {E} unique edges exceed the uint16 edge-id "
-                  "transport; falling back to host edge aggregation", flush=True)
-            fine["p2_build"] += time.time() - t
-            self.last_agg["path"] = "host"
-            return None
-        nb, S_max = len(built), max(args.S for _, args in built)
-        b, K = built[0][1].tgt.shape[0], built[0][1].tgt.shape[-1]
-        eids = np.full((nb, b, S_max, K), E_pad, np.uint16)
-        for i, (_, args) in enumerate(built):
-            eid = np.searchsorted(uniq, keys_per[i]).astype(np.uint16)
-            eid[~args.valid] = E_pad
-            eids[i, :, :args.S] = eid
-        fine["p2_build"] += time.time() - t
-        t = time.time()
-        (dev_eids,) = self._put(eids)
-        acc = torch.zeros((E_pad + 1, 3), dtype=torch.int32, device=self.device)
-        for i, (feats, args) in enumerate(built):
-            self._phase2_agg(feats, *self._put(args.points, args.tgt, args.valid_packed),
-                             dev_eids[i, :, :args.S], acc)
-        fine["p2_dispatch"] += time.time() - t
-        t = time.time()
-        acc_np = acc.cpu().numpy()  # one [E_pad + 1, 3] int32 fetch
-        fine["p2_fetch"] += time.time() - t
-        sum_q = acc_np[:E, 0].astype(np.int64)
-        cnt = np.maximum(acc_np[:E, 1].astype(np.float64), 1.0)
-        nanc = acc_np[:E, 2].astype(np.int64)
-        # the host path's decode: a NaN's -32768 out of the sum, -100 in
-        sums = ((sum_q + 32768 * nanc).astype(np.float64) / 32767.0
-                - 100.0 * nanc.astype(np.float64))
-        kept = uniq[sums / cnt > cfg.TOPO_THRESHOLD].astype(np.int64)
-        if not kept.size:
-            return np.zeros((0, 2), dtype=np.int64)
-        return np.stack([kept >> 16, kept & 0xFFFF], axis=1)
+        with span("engine.p2.build", fine, "p2_build"):
+            keys_per, all_keys = [], []
+            for _, args in built:
+                b = args.tgt.shape[0]
+                gp = np.zeros((b, args.S), np.uint16)
+                for i, (pidx, pts, _, _) in enumerate(args.per_patch):
+                    gp[i, :pts.shape[0]] = pidx
+                gtgt = gp[np.arange(b)[:, None, None], args.tgt.astype(np.int64)]
+                keys = (gp[:, :, None].astype(np.uint32) << 16) | gtgt.astype(np.uint32)
+                keys_per.append(keys)
+                all_keys.append(keys[args.valid])
+            cat = np.concatenate(all_keys)
+            if cat.size == 0:
+                self.last_agg = dict(vertices=n_points, E=0, E_pad=None, path="device")
+                return np.zeros((0, 2), dtype=np.int64)
+            uniq = np.unique(cat)
+            E = uniq.shape[0]
+            E_pad = _bucket_size(E, 1024)
+            self.last_agg = dict(vertices=n_points, E=int(E), E_pad=int(E_pad), path="device")
+            if E_pad > _AGG_MAX_EDGE_PAD:
+                print(f"[engine] INFER_P2_DEVICE_AGG: {E} unique edges exceed the uint16 "
+                      "edge-id transport; falling back to host edge aggregation", flush=True)
+                self.last_agg["path"] = "host"
+                return None
+            nb, S_max = len(built), max(args.S for _, args in built)
+            b, K = built[0][1].tgt.shape[0], built[0][1].tgt.shape[-1]
+            eids = np.full((nb, b, S_max, K), E_pad, np.uint16)
+            for i, (_, args) in enumerate(built):
+                eid = np.searchsorted(uniq, keys_per[i]).astype(np.uint16)
+                eid[~args.valid] = E_pad
+                eids[i, :, :args.S] = eid
+        with span("engine.p2.dispatch", fine, "p2_dispatch"):
+            (dev_eids,) = self._put(eids)
+            acc = torch.zeros((E_pad + 1, 3), dtype=torch.int32, device=self.device)
+            for i, (feats, args) in enumerate(built):
+                self._phase2_agg(feats, *self._put(args.points, args.tgt, args.valid_packed),
+                                 dev_eids[i, :, :args.S], acc)
+        with span("engine.p2.fetch", fine, "p2_fetch"):
+            acc_np = acc.cpu().numpy()  # one [E_pad + 1, 3] int32 fetch
+        with span("engine.aggregate", fine, "aggregate"):
+            sum_q = acc_np[:E, 0].astype(np.int64)
+            cnt = np.maximum(acc_np[:E, 1].astype(np.float64), 1.0)
+            nanc = acc_np[:E, 2].astype(np.int64)
+            # the host path's decode: a NaN's -32768 out of the sum, -100 in
+            sums = ((sum_q + 32768 * nanc).astype(np.float64) / 32767.0
+                    - 100.0 * nanc.astype(np.float64))
+            kept = uniq[sums / cnt > cfg.TOPO_THRESHOLD].astype(np.int64)
+            if not kept.size:
+                return np.zeros((0, 2), dtype=np.int64)
+            return np.stack([kept >> 16, kept & 0xFFFF], axis=1)
 
     def _collect_scores(self, pending, fine: dict | None = None):
         """Fetch the pending int16 scores, one stacked copy per distinct
@@ -912,36 +977,36 @@ class TiledInferenceEngine:
         up to 32, and keep the valid pairs': (source vertex, target vertex,
         score) arrays, one triple per patch with a valid pair. Adds the
         fetch's seconds to `fine`'s p2_fetch."""
-        t = time.time()
-        by_shape: dict = {}
-        for bi, (q, _) in enumerate(pending):
-            by_shape.setdefault(tuple(q.shape), []).append(bi)
-        waves = max(1, int(self.config.INFER_P2_FETCH_WAVES or 1))
-        fetched = {}
-        for shape, idxs in by_shape.items():
-            if waves > 1 and len(idxs) >= 2 * waves:
-                parts = [[int(i) for i in s] for s in np.array_split(np.asarray(idxs), waves)
-                         if len(s)]
-            else:
-                parts = [idxs]
-            for part in parts:
-                maxn = max((pp[1].shape[0] for bi in part for pp in pending[bi][1]), default=0)
-                cut = min(shape[1], _round_up(max(maxn, 1), 32))
-                stacked = torch.stack([pending[bi][0] for bi in part])[:, :, :cut]
-                stacked = stacked.contiguous().cpu().numpy()
-                for j, bi in enumerate(part):
-                    fetched[bi] = stacked[j]
-        if fine is not None:
-            fine["p2_fetch"] += time.time() - t
+        with span("engine.p2.fetch", fine, "p2_fetch"):
+            by_shape: dict = {}
+            for bi, (q, _) in enumerate(pending):
+                by_shape.setdefault(tuple(q.shape), []).append(bi)
+            waves = max(1, int(self.config.INFER_P2_FETCH_WAVES or 1))
+            fetched = {}
+            for shape, idxs in by_shape.items():
+                if waves > 1 and len(idxs) >= 2 * waves:
+                    parts = [[int(i) for i in s]
+                             for s in np.array_split(np.asarray(idxs), waves) if len(s)]
+                else:
+                    parts = [idxs]
+                for part in parts:
+                    maxn = max((pp[1].shape[0] for bi in part for pp in pending[bi][1]),
+                               default=0)
+                    cut = min(shape[1], _round_up(max(maxn, 1), 32))
+                    stacked = torch.stack([pending[bi][0] for bi in part])[:, :, :cut]
+                    stacked = stacked.contiguous().cpu().numpy()
+                    for j, bi in enumerate(part):
+                        fetched[bi] = stacked[j]
         scored = []
-        for bi, (_, per_patch) in enumerate(pending):
-            q = fetched[bi][..., 0].astype(np.int64)
-            for i, (pidx, pts, pairs, valid) in enumerate(per_patch):
-                n = pts.shape[0]
-                if n == 0 or not valid.any():
-                    continue
-                scored.append((pidx[pairs[..., 0][valid]], pidx[pairs[..., 1][valid]],
-                               q[i, :n][valid]))
+        with span("engine.p2.collect"):
+            for bi, (_, per_patch) in enumerate(pending):
+                q = fetched[bi][..., 0].astype(np.int64)
+                for i, (pidx, pts, pairs, valid) in enumerate(per_patch):
+                    n = pts.shape[0]
+                    if n == 0 or not valid.any():
+                        continue
+                    scored.append((pidx[pairs[..., 0][valid]], pidx[pairs[..., 1][valid]],
+                                   q[i, :n][valid]))
         return scored
 
     def _aggregate_edges(self, scored, n_points: int):
@@ -949,23 +1014,25 @@ class TiledInferenceEngine:
         keep the edges above TOPO_THRESHOLD: [E, 2] vertex indices."""
         if not scored:
             return np.zeros((0, 2), dtype=np.int64)
-        all_src, all_tgt, all_score = zip(*scored)
-        n_pts = np.int64(n_points)
-        keys = np.concatenate(all_src) * n_pts + np.concatenate(all_tgt)
-        sc = np.concatenate(all_score)
-        uniq, inv = np.unique(keys, return_inverse=True)
-        sum_q = np.zeros(uniq.shape[0], np.int64)
-        nanc = np.zeros(uniq.shape[0], np.int64)
-        counts = np.zeros(uniq.shape[0], np.int64)
-        np.add.at(sum_q, inv, sc)
-        np.add.at(nanc, inv, (sc == NAN_Q).astype(np.int64))
-        np.add.at(counts, inv, 1)
-        # exact int64 sums; a NaN score counts as the reference's -100
-        sums = ((sum_q + 32768 * nanc).astype(np.float64) / 32767.0
-                - 100.0 * nanc.astype(np.float64))
-        avg = sums / counts.astype(np.float64)
-        kept = uniq[avg > self.config.TOPO_THRESHOLD]
-        return np.stack([kept // n_pts, kept % n_pts], axis=1)
+        with span("aggregate.unique"):
+            all_src, all_tgt, all_score = zip(*scored)
+            n_pts = np.int64(n_points)
+            keys = np.concatenate(all_src) * n_pts + np.concatenate(all_tgt)
+            sc = np.concatenate(all_score)
+            uniq, inv = np.unique(keys, return_inverse=True)
+        with span("aggregate.sums"):
+            sum_q = np.zeros(uniq.shape[0], np.int64)
+            nanc = np.zeros(uniq.shape[0], np.int64)
+            counts = np.zeros(uniq.shape[0], np.int64)
+            np.add.at(sum_q, inv, sc)
+            np.add.at(nanc, inv, (sc == NAN_Q).astype(np.int64))
+            np.add.at(counts, inv, 1)
+            # exact int64 sums; a NaN score counts as the reference's -100
+            sums = ((sum_q + 32768 * nanc).astype(np.float64) / 32767.0
+                    - 100.0 * nanc.astype(np.float64))
+            avg = sums / counts.astype(np.float64)
+            kept = uniq[avg > self.config.TOPO_THRESHOLD]
+            return np.stack([kept // n_pts, kept % n_pts], axis=1)
 
     # ---------- entry points ----------
 

@@ -65,14 +65,13 @@ def extraction_split(kp_mask, road_mask, cfg):
 def phase2_split(engine, img) -> dict:
     """One region's phase 2 through the engine's methods, step by step."""
     from sam_road_tpu_torch.graph.extraction import extract_graph_points
-    from sam_road_tpu_torch.inference.engine import fine_timings
 
     dev = engine.device
     p1 = engine._run_phase1(img)
     masks = engine._fetch_masks(p1)
     graph_points = extract_graph_points(np.ascontiguousarray(masks[..., 0]),
                                         np.ascontiguousarray(masks[..., 1]), engine.config)
-    fine = fine_timings()
+    fine = {}  # the engine's spans add p2_build, p2_dispatch, p2_fetch
     t0 = time.perf_counter()
     pending, _ = engine._dispatch_phase2(p1["batches"], graph_points, fine)
     t1 = time.perf_counter()

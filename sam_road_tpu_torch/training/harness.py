@@ -48,6 +48,7 @@ and writes checkpoints.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from functools import partial
@@ -60,7 +61,11 @@ from torch.nn.parallel import DistributedDataParallel
 from sam_road_tpu_torch.models.fast_encoder import encoder_forward_fused
 from sam_road_tpu_torch.ops.losses import bce_with_logits, masked_topo_loss, sigmoid_focal_loss
 from sam_road_tpu_torch.ops.metrics import binary_f1_counts, binary_iou_counts, pr_histogram
+from sam_road_tpu_torch.utils.profiling import span
 from sam_road_tpu_torch.utils.viz import save_val_visualizations
+
+
+_END = object()  # the loader's end, for next()
 
 
 def param_group(name: str) -> str:
@@ -179,7 +184,16 @@ def make_train_step(config, model, optimizer, steps_per_epoch: int, forward_mode
     changes neither the parameters nor Adam's state (aux["skipped"] = 1);
     checking costs one host sync per step. `forward_model` (the DDP wrapper
     of `model`, under a process group) runs the forward; the ranks then
-    reduce as the module docstring says."""
+    reduce as the module docstring says.
+
+    The step's stages are spans (utils/profiling.py), in order:
+    train.materialize, train.forward (the loss included), train.backward,
+    train.grad_norm (zero-filled gradients, the norm, the clip),
+    train.finite_sync, train.update, train.aux_sync, train.release (the
+    loss's autograd graph and the batch freed, milliseconds at ViT-H's
+    depth, which would otherwise fall between spans at the return).
+    aux["wait_seconds"] is train.finite_sync + train.aux_sync: the host
+    blocked on the card."""
     fused = bool(config.FUSED_ENCODER_TRAIN)
     if fused and config.USE_SAM_DECODER:
         raise ValueError("FUSED_ENCODER_TRAIN requires the naive map decoder "
@@ -199,35 +213,47 @@ def make_train_step(config, model, optimizer, steps_per_epoch: int, forward_mode
     world = dist.get_world_size() if reduce else 1
 
     def train_step(batch, generator) -> dict:
-        model.zero_grad(set_to_none=True)
-        batch = materialize_batch(batch, device)
-        denom = None
-        if reduce:  # the global valid count, as JAX's step over the global batch
-            count = batch["valid"].sum(dtype=torch.float32)
-            dist.all_reduce(count)
-            denom = count.clamp(min=1.0) / world
-        loss, aux = loss_fn(forward, batch, use_focal, deterministic=deterministic,
-                            generator=generator, fused=fused, remat=remat,
-                            topo_denominator=denom)
-        loss.backward()
-        if reduce:
-            stats = torch.stack([aux[k].detach() for k in ("mask_loss", "topo_loss", "loss")])
-            dist.all_reduce(stats)
-            aux = dict(zip(("mask_loss", "topo_loss", "loss"), stats / world))
-        for p in params:
-            if p.grad is None and p.requires_grad:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params if p.grad is not None]
-        grad_norm = torch.nn.utils.get_total_norm(grads)
-        if clip_norm > 0.0:
-            scale = (clip_norm / grad_norm.clamp(min=1e-12)).clamp(max=1.0)
-            for g in grads:
-                g.mul_(scale)
-        finite = bool(torch.isfinite(aux["loss"]) & torch.isfinite(grad_norm))
-        if finite:
-            apply_update(optimizer, boundary)
-        out = {k: v.item() for k, v in aux.items()}
-        out.update(grad_norm=grad_norm.item(), skipped=0.0 if finite else 1.0)
+        wait: dict = {}
+        with span("train.materialize"):
+            model.zero_grad(set_to_none=True)
+            batch = materialize_batch(batch, device)
+        with span("train.forward"):
+            denom = None
+            if reduce:  # the global valid count, as JAX's step over the global batch
+                count = batch["valid"].sum(dtype=torch.float32)
+                dist.all_reduce(count)
+                denom = count.clamp(min=1.0) / world
+            loss, aux = loss_fn(forward, batch, use_focal, deterministic=deterministic,
+                                generator=generator, fused=fused, remat=remat,
+                                topo_denominator=denom)
+        with span("train.backward"):
+            loss.backward()
+            if reduce:
+                stats = torch.stack([aux[k].detach() for k in ("mask_loss", "topo_loss",
+                                                                "loss")])
+                dist.all_reduce(stats)
+                aux = dict(zip(("mask_loss", "topo_loss", "loss"), stats / world))
+        with span("train.grad_norm"):
+            for p in params:
+                if p.grad is None and p.requires_grad:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params if p.grad is not None]
+            grad_norm = torch.nn.utils.get_total_norm(grads)
+            if clip_norm > 0.0:
+                scale = (clip_norm / grad_norm.clamp(min=1e-12)).clamp(max=1.0)
+                for g in grads:
+                    g.mul_(scale)
+        with span("train.finite_sync", wait, "wait_seconds"):
+            finite = bool(torch.isfinite(aux["loss"]) & torch.isfinite(grad_norm))
+        with span("train.update"):
+            if finite:
+                apply_update(optimizer, boundary)
+        with span("train.aux_sync", wait, "wait_seconds"):
+            out = {k: v.item() for k, v in aux.items()}
+            out.update(grad_norm=grad_norm.item(), skipped=0.0 if finite else 1.0)
+        with span("train.release"):  # the loss's graph and the batch, freed here
+            del loss, aux, batch
+        out.update(wait)
         return out
 
     return train_step
@@ -386,17 +412,22 @@ class Trainer:
     def train_epoch(self, loader, epoch: int) -> list:
         """One pass over `loader`; returns the aux of every log_every-th
         step. Each aux has "seconds", the host time since the previous step
-        returned (the first: since the loop began), and "data_seconds", the
-        part of it spent waiting for the loader's batch. Every step ends in
-        a host sync, so from the second step on "seconds" is the step's wall
+        returned (the first: since the loop began), "data_seconds", the
+        part of it spent in the loader's next (the train.data span), and the
+        step's "wait_seconds" (make_train_step). Every step ends in a host
+        sync, so from the second step on "seconds" is the step's wall
         time."""
         logs = []
         t_prev = time.perf_counter()
-        for i, batch in enumerate(loader):
-            t_batch = time.perf_counter()
+        batches = iter(loader)
+        for i in itertools.count():
+            with span("train.data") as data:
+                batch = next(batches, _END)
+            if batch is _END:
+                break
             aux = self._train_step(batch, self.generator)
             now = time.perf_counter()
-            aux.update(seconds=now - t_prev, data_seconds=t_batch - t_prev, epoch=epoch, batch=i)
+            aux.update(seconds=now - t_prev, data_seconds=data.seconds, epoch=epoch, batch=i)
             t_prev = now
             self.step += 1
             self.history.append(aux)

@@ -29,7 +29,7 @@ from sam_road_tpu.models.vit import Block as JBlock
 from sam_road_tpu.ops.sampling import bilinear_sample_points as jsample
 from sam_road_tpu_torch.config import load_config
 from sam_road_tpu_torch.graph.extraction import extract_graph_points
-from sam_road_tpu_torch.inference.engine import _accumulate, _finalize
+from sam_road_tpu_torch.inference.engine import TIMING_KEYS, _accumulate, _finalize
 from sam_road_tpu_torch.models import fast_encoder as fe
 from sam_road_tpu_torch.models.convert import load_flax_params
 from sam_road_tpu_torch.models.sam_road import SAMRoad
@@ -115,8 +115,9 @@ def test_bench_main_prints_one_json_line_with_its_keys(model, img, capsys):
     d = result["detail"]
     assert result["value"] == min(d["all_runs_s"]) and len(d["per_run"]) == 2
     assert d["median_s"] >= result["value"]
+    # the JAX engine's keys and the port's own (p1_device on CUDA alone)
     assert set(d["timings"]) == {"phase1", "extract", "phase2", "total", "p2_build",
-                                 "p2_dispatch", "p2_fetch"}
+                                 "p2_dispatch", "p2_fetch", *TIMING_KEYS} - {"p1_device"}
     assert d["timings"] in d["per_run"]
     assert d["nodes"] > 0 and d["edges"] > 0 and d["patches"] == 16 and d["batch"] == 8
     assert d["tiles_per_sec"] == pytest.approx(16 / d["timings"]["phase1"])
