@@ -1,7 +1,9 @@
 """Build-and-load for the port's shared libraries and executables.
 
-Host C++ (the repository's native/*.cc, shared with the JAX package) is
-compiled with g++, and the CUDA kernels (csrc/) with nvcc (ops/_build.py).
+Host C++ is compiled with g++: the repository's native/*.cc that the JAX
+package shares (kNN pairs, TOPO, APLS) and the port's own csrc/*.cc (the
+NMS, the rasteriser, the PNG row unfilter). The CUDA kernels (csrc/*.cu)
+are compiled with nvcc (ops/_build.py).
 native/apls.cc is an executable (build_executable), the rest are shared
 libraries. Each is built at first use into BUILD_DIR,
 which .gitignore lists, under a file name keyed by a hash of its sources and

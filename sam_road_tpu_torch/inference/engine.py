@@ -7,8 +7,9 @@ its single-device paths, its two mesh paths and its phase-2 modes).
            the mask decoder, fuse the masks as int32 fixed point (1/1024)
            and finalise to uint8 by truncation; the feature maps stay on
            the device;
-  host     extract vertices (graph/extraction.py, native NMS) and build the
-           per-patch pairs (inference/pairs.py, native kNN);
+  host     extract vertices (graph/extraction.py over graph/nms.py's native
+           NMS, whose grid holds only the suppressible candidates) and
+           build the per-patch pairs (inference/pairs.py, native kNN);
   phase 2  per batch: sample the cached features bilinearly, score the pairs
            with TopoNet, quantise the scores to int16 (-32768 for NaN); the
            per-edge averages are exact int64 sums.
@@ -117,6 +118,7 @@ import numpy as np
 import torch
 
 from sam_road_tpu_torch.data.partitions import get_patch_info_one_img
+from sam_road_tpu_torch.graph import nms
 from sam_road_tpu_torch.graph.extraction import extract_graph_points
 from sam_road_tpu_torch.inference.pairs import build_pairs_for_boxes
 from sam_road_tpu_torch.models.fast_encoder import encoder_forward_fused
@@ -145,7 +147,12 @@ _AGG_MAX_EDGE_PAD = 65535
 #                mask chunk's copy to the host was queued. Phase 1's span
 #                on the stream: it includes the stream's stalls on the slab
 #                uploads and on the host's enqueue.
-TIMING_KEYS = ("p1_dispatch", "mask_wait", "aggregate", "launches", "p1_device")
+#   nms_candidates    points into the extraction's NMS passes
+#   nms_suppressible  of them, those in the NMS grid (score <= 1.0; with
+#                     uint8 masks the final pass's input alone)
+#                     (graph/nms.py::counts)
+TIMING_KEYS = ("p1_dispatch", "mask_wait", "aggregate", "launches", "p1_device",
+               "nms_candidates", "nms_suppressible")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -800,8 +807,11 @@ class TiledInferenceEngine:
             kp_mask = np.ascontiguousarray(masks[..., 0])
             road_mask = np.ascontiguousarray(masks[..., 1])
         t = {**p1["timings"], "mask_wait": wait.seconds}
+        counted = nms.counts.copy()
         with span("engine.extract", t, "extract"):
             graph_points = extract_graph_points(kp_mask, road_mask, self.config)
+        t["nms_candidates"] = nms.counts["candidates"] - counted["candidates"]
+        t["nms_suppressible"] = nms.counts["suppressible"] - counted["suppressible"]
         edges = self._phase2_and_aggregate(p1, graph_points, t)
         t["phase1"] = t["p1_dispatch"] + t["mask_wait"]
         t["launches"] += _build.launches.total() - launched

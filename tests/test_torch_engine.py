@@ -187,6 +187,21 @@ def test_engine_infer_tiles_matches_one_by_one(engines):
             np.testing.assert_array_equal(a, b)
 
 
+def test_engine_counts_nms_points(engines):
+    """last_timings' NMS counters: uint8 mask values are all above 1.0, so
+    the keypoint and road passes put no candidate into the grid and the
+    final pass puts in all of its input, every candidate of both."""
+    _, teng = engines
+    img = np.random.default_rng(5).integers(0, 255, (192, 192, 3), dtype=np.uint8)
+    _, _, kp, road = teng.infer_one_img(img)
+    t = teng.last_timings
+    first = int((kp > ENGINE["ITSC_THRESHOLD"] * 255).sum()
+                + (road > ENGINE["ROAD_THRESHOLD"] * 255).sum())
+    assert first > 100
+    assert t["nms_suppressible"] == first
+    assert t["nms_candidates"] == 2 * first
+
+
 def test_engine_rejects_bad_regions(engines):
     _, teng = engines
     with pytest.raises(ValueError):
