@@ -142,15 +142,20 @@ def region(config_file: dict, mix: dict, seed: int, seconds: float, trace: bool,
         batches = []
         spans = ("bench.encoder", "bench.extract", "bench.p2_build", "bench.aggregate")
         with contextlib.ExitStack() as stack:
-            stack.enter_context(annotated(engine, "encoder", spans[0],
-                                          lambda module, x: batches.append(int(x.shape[0]))))
+            if engine.encoder is not None:  # the fused encoder, which the engine calls
+                stack.enter_context(annotated(engine, "encoder", spans[0],
+                                              lambda module, x: batches.append(int(x.shape[0]))))
+            else:  # the eager encoder, the model's own
+                stack.enter_context(annotated(net.image_encoder, "forward", spans[0],
+                                              lambda x: batches.append(int(x.shape[0]))))
             stack.enter_context(annotated(engine_mod, "extract_graph_points", spans[1]))
             stack.enter_context(annotated(engine, "_build_args", spans[2]))
             stack.enter_context(annotated(engine, "_aggregate_edges", spans[3]))
             with trace_mod.traced(device) as seg:
                 for _ in engine.infer_tiles(regions):
                     pass
-        traced = trace_mod.reduce(seg["prof"], seg["window_s"], spans)
+        traced = trace_mod.reduce(seg["prof"], seg["window_s"], spans,
+                                  kernels=("relpos_attention_kernel", "window_attention_kernel"))
         traced["encoder_batches"] = batches
         traced["units"] = len(regions)
         del seg

@@ -28,9 +28,8 @@ def read(run):
     dev = forward + backward
     arch = run["arch"]
     B = int(run["cfg"]["BATCH_SIZE"])
-    n_global = len(arch["global_attn_indexes"])
     bound = 0.0
-    for kind, n in (("global", n_global), ("window", arch["depth"] - n_global)):
+    for kind, n in counts.attention_blocks(arch).items():
         f = counts.attention_flops(arch, kind)
         fwd, bwd = counts.attention_bytes(arch, kind), counts.attention_bytes(arch, kind, True)
         bound += n * (counts.roofline_s(B * f, B * fwd) + counts.roofline_s(2 * B * f, B * bwd))

@@ -6,7 +6,8 @@ its bytes (float32 parameters read once, bf16 input and embeddings);
 the call's least time is the larger of operations at 989 TFLOP/s and bytes
 at 3.35 TB/s (operations bound it at every batch the cells use).
 Time: the device seconds of every kernel launched inside the benchmark's
-record_function("bench.encoder") around the engine's encoder call.
+record_function("bench.encoder") around the encoder call: the engine's
+fused encoder, or the model's own image_encoder where it runs eagerly.
 Nothing when the trace attributes no kernel to that span."""
 
 from benchmark import counts

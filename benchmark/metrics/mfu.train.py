@@ -1,6 +1,6 @@
 """The whole training step's share of the card's bf16 peak, in %: three
 times the forward's operations (forward and backward) of a step over
-train_step_s (the window's seconds over its steps), at 989 TFLOP/s.
+step_s.train (the window's seconds over its steps), at 989 TFLOP/s.
 
 Forward operations (benchmark/counts.py): the encoder and the map decoder
 over the batch's patches, and TopoNet over each patch's points and its

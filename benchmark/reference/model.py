@@ -1,15 +1,12 @@
 """SAM-Road's forward in plain PyTorch, written from the published models.
 
-The SAM ViT image encoder (Kirillov et al. 2023, github.com/facebookresearch/
-segment-anything, modeling/image_encoder.py: patch embedding, absolute
-position embedding, pre-norm blocks with windowed or global attention and
-decomposed relative position bias, zero padding of the windows, the neck),
-SAM-Road's naive map decoder and TopoNet (github.com/htcr/sam_road,
-model.py: four stride-2 transposed convolutions; a point-feature projection,
-pair features [src, tgt, tgt - src], a 3-layer post-norm
-nn.TransformerEncoder with ReLU and dropout 0.1 inside each source point's
-group of pairs, one logit per pair), and F.grid_sample's bilinear point
-sampling.
+The image encoder is the configuration's family (encoders/, by
+`published.encoder`; SAM's ViT where none is named). SAM-Road's naive map
+decoder and TopoNet (github.com/htcr/sam_road, model.py: four stride-2
+transposed convolutions; a point-feature projection, pair features [src,
+tgt, tgt - src], a 3-layer post-norm nn.TransformerEncoder with ReLU and
+dropout 0.1 inside each source point's group of pairs, one logit per pair),
+and F.grid_sample's bilinear point sampling, are shared by every family.
 
 Everything is a function of a state dict (SAM's torch names, which the
 program under test also uses) and a configuration file's `published` block;
@@ -27,6 +24,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from benchmark.reference import encoders
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
@@ -82,35 +81,12 @@ def tf32_off() -> None:
 
 def param_specs(arch: dict) -> list:
     """(name, shape, init) of every parameter, in the program's state-dict
-    order. init: "lecun" N(0, 1 / fan_in), "table" N(0, 0.02^2), "one", "zero".
+    order: the encoder family's, then the map decoder's and TopoNet's.
+    init: "lecun" N(0, 1 / fan_in), "lecun_t" the same with a transposed
+    convolution's fan-in, "table" N(0, 0.02^2), "one", "zero".
     `arch` is a configuration file's `published` block plus its PATCH_SIZE."""
-    C, depth = arch["embed_dim"], arch["depth"]
-    nh, ws, p = arch["num_heads"], arch["window_size"], arch["patch_size"]
-    grid = arch["PATCH_SIZE"] // p
-    hd = C // nh
     out = arch["out_chans"]
-    mlp = int(C * arch["mlp_ratio"])
-    specs = [("image_encoder.pos_embed", (1, grid, grid, C), "table"),
-             ("image_encoder.patch_embed.proj.weight", (C, 3, p, p), "lecun"),
-             ("image_encoder.patch_embed.proj.bias", (C,), "zero")]
-    for i in range(depth):
-        b = f"image_encoder.blocks.{i}."
-        size = grid if i in arch["global_attn_indexes"] else ws
-        specs += [(b + "norm1.weight", (C,), "one"), (b + "norm1.bias", (C,), "zero"),
-                  (b + "attn.rel_pos_h", (2 * size - 1, hd), "table"),
-                  (b + "attn.rel_pos_w", (2 * size - 1, hd), "table"),
-                  (b + "attn.qkv.weight", (3 * C, C), "lecun"),
-                  (b + "attn.qkv.bias", (3 * C,), "zero"),
-                  (b + "attn.proj.weight", (C, C), "lecun"), (b + "attn.proj.bias", (C,), "zero"),
-                  (b + "norm2.weight", (C,), "one"), (b + "norm2.bias", (C,), "zero"),
-                  (b + "mlp.lin1.weight", (mlp, C), "lecun"), (b + "mlp.lin1.bias", (mlp,), "zero"),
-                  (b + "mlp.lin2.weight", (C, mlp), "lecun"), (b + "mlp.lin2.bias", (C,), "zero")]
-    specs += [("image_encoder.neck.0.weight", (out, C, 1, 1), "lecun"),
-              ("image_encoder.neck.1.weight", (out,), "one"),
-              ("image_encoder.neck.1.bias", (out,), "zero"),
-              ("image_encoder.neck.2.weight", (out, out, 3, 3), "lecun"),
-              ("image_encoder.neck.3.weight", (out,), "one"),
-              ("image_encoder.neck.3.bias", (out,), "zero")]
+    specs = encoders.family(arch).param_specs(arch)
     chans = (out, 128, 64, 32, 2)
     for j, slot in enumerate((0, 3, 5, 7)):
         specs += [(f"map_decoder.{slot}.weight", (chans[j], chans[j + 1], 2, 2), "lecun_t"),
@@ -163,7 +139,7 @@ def make_weights(arch: dict, seed: int, device) -> dict:
     return sd
 
 
-# ---------------------------------------------------------------- encoder
+# ---------------------------------------------------------------- shared layers
 
 
 def _linear(x, sd, name, prec):
@@ -172,53 +148,6 @@ def _linear(x, sd, name, prec):
 
 def _ln(x, sd, name, eps, prec):
     return prec(F.layer_norm(x, x.shape[-1:], sd[name + ".weight"], sd[name + ".bias"], eps))
-
-
-def _rel_pos(q_size: int, k_size: int, table):
-    """SAM's get_rel_pos where no interpolation is needed."""
-    coords = (torch.arange(q_size)[:, None] - torch.arange(k_size)[None, :]) + (k_size - 1)
-    return table[coords.to(table.device)]
-
-
-def _attention(x, sd, b, nh, prec):
-    """SAM's Attention with use_rel_pos over x [B, H, W, C]."""
-    B, H, W, C = x.shape
-    hd = C // nh
-    qkv = _linear(x.reshape(B, H * W, C), sd, b + "attn.qkv", prec)
-    qkv = qkv.reshape(B, H * W, 3, nh, hd).permute(2, 0, 3, 1, 4).reshape(3, B * nh, H * W, hd)
-    q, k, v = qkv[0], qkv[1], qkv[2]
-    attn = prec(q * hd ** -0.5) @ prec(k).transpose(-2, -1)
-    Rh = _rel_pos(H, H, sd[b + "attn.rel_pos_h"])
-    Rw = _rel_pos(W, W, sd[b + "attn.rel_pos_w"])
-    r_q = prec(q).reshape(B * nh, H, W, hd)
-    rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, prec(Rh))
-    rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, prec(Rw))
-    attn = (attn.view(B * nh, H, W, H, W) + rel_h[:, :, :, :, None]
-            + rel_w[:, :, :, None, :]).view(B * nh, H * W, H * W)
-    attn = attn.softmax(dim=-1)
-    out = prec(prec(attn) @ prec(v)).view(B, nh, H, W, hd).permute(0, 2, 3, 1, 4)
-    out = out.reshape(B, H, W, C)
-    return _linear(out, sd, b + "attn.proj", prec)
-
-
-def _block(x, sd, b, nh, ws, prec):
-    shortcut = x
-    x = _ln(x, sd, b + "norm1", 1e-6, prec)
-    if ws > 0:
-        B, H, W, C = x.shape
-        ph, pw = (ws - H % ws) % ws, (ws - W % ws) % ws
-        x = F.pad(x, (0, 0, 0, pw, 0, ph))
-        Hp, Wp = H + ph, W + pw
-        x = x.view(B, Hp // ws, ws, Wp // ws, ws, C).permute(0, 1, 3, 2, 4, 5)
-        x = _attention(x.reshape(-1, ws, ws, C), sd, b, nh, prec)
-        x = x.view(B, Hp // ws, Wp // ws, ws, ws, C).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(B, Hp, Wp, C)[:, :H, :W]
-    else:
-        x = _attention(x, sd, b, nh, prec)
-    x = prec(shortcut + x)
-    h = _ln(x, sd, b + "norm2", 1e-6, prec)
-    h = _linear(prec(F.gelu(_linear(h, sd, b + "mlp.lin1", prec))), sd, b + "mlp.lin2", prec)
-    return prec(x + h)
 
 
 def _ln2d(x, sd, name, prec):
@@ -230,20 +159,9 @@ def _ln2d(x, sd, name, prec):
 
 
 def encoder(sd, rgb, arch, prec=FP32):
-    """rgb [B, H, W, 3] in 0-255 -> embeddings [B, 256, H / 16, W / 16]."""
-    mean = torch.tensor(PIXEL_MEAN, device=rgb.device)
-    std = torch.tensor(PIXEL_STD, device=rgb.device)
-    x = prec((rgb.float() - mean) / std).permute(0, 3, 1, 2)
-    e = "image_encoder."
-    x = prec(F.conv2d(x, prec(sd[e + "patch_embed.proj.weight"]),
-                      sd[e + "patch_embed.proj.bias"], stride=arch["patch_size"]))
-    x = prec(x.permute(0, 2, 3, 1) + sd[e + "pos_embed"])
-    for i in range(arch["depth"]):
-        ws = 0 if i in arch["global_attn_indexes"] else arch["window_size"]
-        x = _block(x, sd, f"{e}blocks.{i}.", arch["num_heads"], ws, prec)
-    x = x.permute(0, 3, 1, 2)
-    x = _ln2d(F.conv2d(x, prec(sd[e + "neck.0.weight"])), sd, e + "neck.1", prec)
-    return _ln2d(F.conv2d(x, prec(sd[e + "neck.2.weight"]), padding=1), sd, e + "neck.3", prec)
+    """rgb [B, H, W, 3] in 0-255 -> embeddings [B, 256, H / 16, W / 16],
+    through the configuration's encoder family."""
+    return encoders.family(arch).forward(sd, rgb, arch, prec)
 
 
 def decoder(sd, emb, prec=FP32):

@@ -1,6 +1,7 @@
 """A tiny copy of the benchmark's cells for CPU tests: vit_t at 64 px
 patches, 192 px regions, float32, the program's plain PyTorch versions in
-place of its CUDA kernels. make_tiny writes its configuration and traffic
+place of its CUDA kernels; the region cell with the fused encoder and
+with the eager one. make_tiny writes its configuration and traffic
 files under a directory and returns (spec, root) for
 benchmark.run.execute."""
 
@@ -35,10 +36,15 @@ def make_tiny(tmp_path):
     config = {**base["config"], **TINY_CONFIG}
     (tmp_path / "benchmark" / "traffic").mkdir(parents=True)
     (tmp_path / "cfg.json").write_text(json.dumps({"published": VIT_T, "config": config}))
+    (tmp_path / "cfg_eager.json").write_text(json.dumps(
+        {"published": VIT_T, "config": {**config, "FUSED_ENCODER": False}}))
     for name, mix in (("tiny_region", REGION_MIX), ("tiny_train", TRAIN_MIX)):
         (tmp_path / "benchmark" / "traffic" / f"{name}.json").write_text(json.dumps(mix))
-    spec["configs"] = [{"name": "tiny", "file": "cfg.json"}]
+    spec["configs"] = [{"name": "tiny", "file": "cfg.json"},
+                       {"name": "tiny_eager", "file": "cfg_eager.json"}]
     spec["workloads"] = [
         {"name": "region.vitb_512", "config": "tiny", "traffic": "tiny_region", "chips": 1},
+        {"name": "region.vitb_512.eager", "config": "tiny_eager", "traffic": "tiny_region",
+         "chips": 1},
         {"name": "train.vith_256", "config": "tiny", "traffic": "tiny_train", "chips": 1}]
     return spec, str(tmp_path)

@@ -74,3 +74,13 @@ def test_rate_counts_the_whole_window(name):
     assert run.end_to_end(name, steady) == pytest.approx(1.0)
     assert run.end_to_end(name, stalled) == pytest.approx(1.5)
     assert run.end_to_end("peak_mem_gib", steady) == pytest.approx(1.0)
+
+
+def test_step_time_per_layer_counts_the_whole_window():
+    # the training step's seconds, reported per layer: ten steps in 10 s
+    # with one 5 s stall read 1.5 s a step
+    read = run.reader("step_s.train")
+    assert read({"kind": "train", "window_s": 10.0, "units": 10}) == pytest.approx(1.0)
+    assert read({"kind": "train", "window_s": 15.0, "units": 10}) == pytest.approx(1.5)
+    assert read({"kind": "train", "window_s": 1.0, "units": 0}) is None
+    assert read({"kind": "region", "window_s": 10.0, "units": 10}) is None

@@ -66,6 +66,15 @@ def test_region_fault_is_caught(tiny, monkeypatch, fault):
     assert not result["correct"]
 
 
+@pytest.mark.parametrize("fault", ["vertex", "mask", "edge", "half_batch", "patch"])
+def test_eager_region_fault_is_caught(tiny, monkeypatch, fault):
+    region_fault(monkeypatch, fault)
+    spec, root = tiny
+    result, _, _ = run.execute(spec, "region.vitb_512.eager", 9, 0.3, False,
+                               torch.device("cpu"), root=root)
+    assert not result["correct"]
+
+
 def train_fault(monkeypatch, fault):
     from sam_road_tpu_torch.training import harness
 
@@ -110,6 +119,14 @@ def test_region_control_fails(tiny, seed):
     cfg, mixes = tiny_files(tiny)
     numbers = control.region_control(cfg, mixes["region.vitb_512"], seed, "cpu")
     ok, _ = correct.verdict(numbers, correct.limits_of("region.vitb_512"))
+    assert not ok
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_eager_region_control_fails(tiny, seed):
+    cfg, mixes = tiny_files(tiny)
+    numbers = control.region_control(cfg, mixes["region.vitb_512.eager"], seed, "cpu")
+    ok, _ = correct.verdict(numbers, correct.limits_of("region.vitb_512.eager"))
     assert not ok
 
 

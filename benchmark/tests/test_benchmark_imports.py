@@ -44,8 +44,9 @@ for cell in ("region.vitb_512", "train.vith_256"):
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    found = loaded_after("from benchmark.reference import model, region, train\n"
-                         "from benchmark import correct, counts, traffic")
+    found = loaded_after("from benchmark.reference import encoders, model, region, train\n"
+                         "from benchmark import correct, counts, traffic\n"
+                         "encoders.family({})")
     assert not found & {"sam_road_tpu_torch", "sam_road_tpu", "jax", "jaxlib", "flax"}
 
 
